@@ -9,8 +9,7 @@ the "TLAS" — while triangle data is re-transformed on device in the same
 jit step. Cluster counts are ~tris/124, so this build is a few thousand
 nodes and takes well under a millisecond in vectorised numpy.
 
-Node layout (SoA, flat arrays, friendly to jnp.take gathers and Pallas
-scalar prefetch):
+Node layout (SoA, flat arrays):
 - nodes_min/nodes_max: (N, 3) f32
 - nodes_left:  (N,) i32 — internal: left child index (right = left+1 is NOT
   assumed; right stored separately for topology freedom)
@@ -55,7 +54,7 @@ def build_bvh(
 
     SAH cuts the leaves visited by incoherent (bounce/shadow) packets
     ~1.5-2x vs a pure median split; the split recursion still bounds
-    depth for the kernel's fixed SMEM stack (degenerate runs fall back
+    depth for the tracer's fixed-size stack (degenerate runs fall back
     to median/index splits).
     """
     n = len(aabb_min)
@@ -110,7 +109,7 @@ def build_bvh(
         else:
             part = None
             # depth guard: SAH cuts can be lopsided; the traversal
-            # kernels carry a fixed-size SMEM stack, so force balanced
+            # kernel carries a fixed-size stack, so force balanced
             # median splits past depth 32
             if sah and count > 2 and depth < 32:
                 part, mid = _sah_split(
@@ -183,7 +182,7 @@ def _sah_split(bmin, bmax, cent, axis, ext):
 
 
 def pack_nodes(bvh: Bvh) -> tuple[np.ndarray, np.ndarray]:
-    """Kernel-facing node arrays for ops/trace_bvh.py.
+    """Kernel-facing node arrays for the CUDA tracer (ops/trace_cuda.py).
 
     Returns (bounds (N, 6) f32 [min.xyz | max.xyz],
              meta (N, 3) i32 [left, right, leaf_cluster(-1 internal)]).
@@ -200,78 +199,6 @@ def pack_nodes(bvh: Bvh) -> tuple[np.ndarray, np.ndarray]:
         np.int32
     )
     return bounds, meta
-
-
-def pack_nodes8(bvh: Bvh) -> np.ndarray:
-    """Collapse a max_leaf_size=1 BVH2 into an 8-wide node table for the
-    vectorized Pallas descent (ops/trace_bvh8.py).
-
-    Each BVH8 node is built by repeatedly expanding the largest-area
-    internal slot of {node} until 8 slots are filled (classic wide-BVH
-    collapse). Returns (N8, 8, 8) f32: node n, child slot c holds
-    [min.xyz | max.xyz | enc | 0] where enc >= 0 is an internal child's
-    BVH8 node index and enc < 0 encodes leaf cluster -(cluster+1).
-    Empty slots carry NaN bounds (every slab comparison is false, so the
-    test can never pass — inverted +/-inf bounds would NOT work: each
-    axis yields [-inf, +inf] after the min/max and the slot would enter
-    at 0) and enc 0.
-
-    The TPU win vs the BVH2 descent: one (8, 128) VPU op tests all 8
-    children against all 128 rays of a row at once, and pops drop from
-    ~2 per leaf visit to ~1 per 6-8 visits — the round-2 profile showed
-    the scalar pop machinery (not Möller) was ~75% of incoherent-trace
-    time. Hardware-RT equivalent: RtReference.cpp BLAS/TLAS traversal.
-    """
-    assert bvh.nodes_count.max() <= 1
-    is_leaf = bvh.nodes_count > 0
-    ext = np.maximum(bvh.nodes_max - bvh.nodes_min, 0.0)
-    area = ext[:, 0] * ext[:, 1] + ext[:, 1] * ext[:, 2] + ext[:, 2] * ext[:, 0]
-
-    blocks: list[np.ndarray] = []
-    # each work item: (bvh8_index, slot, bvh2 internal node to emit)
-    patch: list[tuple[int, int, int]] = []
-
-    def collect_slots(n2: int) -> list[int]:
-        slots = [n2]
-        while len(slots) < 8:
-            best, best_a = -1, -1.0
-            for si, s in enumerate(slots):
-                if not is_leaf[s] and area[s] > best_a:
-                    best_a, best = float(area[s]), si
-            if best < 0:
-                break
-            s = slots.pop(best)
-            slots.append(int(bvh.nodes_left[s]))
-            slots.append(int(bvh.nodes_right[s]))
-        return slots
-
-    def emit(n2: int) -> int:
-        my = len(blocks)
-        blk = np.zeros((8, 8), np.float32)
-        blk[:, 0:6] = np.nan
-        blocks.append(blk)
-        if is_leaf[n2]:
-            slots = [n2]
-        else:
-            slots = collect_slots(n2)
-        for j, s in enumerate(slots):
-            blk[j, 0:3] = bvh.nodes_min[s]
-            blk[j, 3:6] = bvh.nodes_max[s]
-            if is_leaf[s]:
-                blk[j, 6] = -(float(bvh.order[bvh.nodes_first[s]]) + 1.0)
-            else:
-                patch.append((my, j, s))
-        return my
-
-    # iterative emission (patch queue doubles as the work list)
-    emit(0)
-    qi = 0
-    while qi < len(patch):
-        my, j, s = patch[qi]
-        qi += 1
-        child = emit(s)
-        blocks[my][j, 6] = float(child)
-    return np.stack(blocks).astype(np.float32)
 
 
 def transform_aabbs(

@@ -2,10 +2,11 @@
 
 Covers the formats the engine actually uses:
 - R9G9B9E5_SHAREDEXP 3D (the Tony McMapface tonemap LUT,
-  /root/reference/res/texture/tony_mc_mapface.dds)
+  res/texture/tony_mc_mapface.dds in the reference)
 - R8G8B8A8_UNORM / _SRGB 2D with mips (our texture cache at-rest format;
-  the reference caches BC7 which TPUs cannot sample — we keep the cache
-  architecture and swap the codec, see SURVEY.md §7 stage 8)
+  the reference caches BC7, which the gather-based sampler here cannot
+  decode — we keep the cache architecture and swap the codec, see
+  SURVEY.md §7 stage 8)
 - R16G16B16A16_FLOAT and R32G32B32A32_FLOAT 2D (HDR dumps)
 
 Reference DDS handling: /root/reference/src/utils/Dds.{hpp,cpp}.

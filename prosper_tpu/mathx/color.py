@@ -2,7 +2,7 @@
 
 Reference: /root/reference/res/shader/common/math.glsl:15 (luminance),
 :17-42 (rgbToHsv, hue in [0,6)), :44-78 (hsvToRgb). The branchy GLSL is
-re-expressed branchless with jnp.where so it vectorises on the VPU.
+re-expressed branchless with jnp.where so it vectorises.
 """
 
 from __future__ import annotations

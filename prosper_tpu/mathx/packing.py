@@ -8,8 +8,8 @@ Reference formats:
   (/root/reference/res/shader/gbuffer.frag:40-55; decode in
   res/shader/scene/visible_surface.glsl signedOctDecode)
 
-On TPU these packings matter for HBM bandwidth of the flat geometry arena:
-we keep vertices quantised at rest and decode in-kernel on the VPU.
+These packings matter for the device-memory bandwidth of the flat
+geometry arena: vertices stay quantised at rest and decode on use.
 """
 
 from __future__ import annotations

@@ -9,7 +9,7 @@ scene/light_clusters.glsl:
   isSpotVisible is `return true` — a faithful quirk)
 - <=128 point + 128 spot indices per froxel
 
-TPU-native shape: instead of shared-memory atomics appending per-cluster
+Data-parallel shape: instead of shared-memory atomics appending per-cluster
 lists, the visibility mask is computed densely as (FX*FY*FZ, L) and
 compacted per froxel with a stable argsort — same observable lists
 (ascending light index order, matching the single-thread-order the

@@ -1,17 +1,18 @@
 """Tile-granular wavefront compaction for sparse per-pixel work.
 
-TPU-shaped alternative to the GPU's implicit early-out: element-level
-scatters are slow on TPU (~20 ms at 2M rows) but TILE-level (256-lane)
-gathers/scatters are near-free, and a prefix sum over R/256 tile flags
-costs microseconds. `tile_apply` runs a per-lane function only on the
+A wavefront stand-in for the reference's implicit early-out: rather than
+element-level scatters at 2M rows, TILE-level (256-lane) gathers and
+scatters move whole tiles, and a prefix sum over R/256 tile flags is
+cheap. `tile_apply` runs a per-lane function only on the
 256-lane tiles where `mask` has any set lane, processing survivors in
 fixed-capacity chunks with a dynamic lax.fori_loop trip count, and
 scatters results back into zero-initialised full-size outputs.
 
-Used by the path tracer's bounce wavefront (render/pt.py, inlined there
-for its loop-carried state) and the G-buffer/deferred material passes
-(render/gbuffer.py). The reference gets the same effect from rasterising
-only covered fragments / early ray termination.
+Used by the ReSTIR stages (render/restir.py), where it measured faster
+on the GPU than dense evaluation (PERF.md); the path tracer inlines the
+same chunked compaction for its loop-carried state (render/pt.py). The
+reference gets the same effect from rasterising only covered fragments /
+early ray termination.
 """
 
 from __future__ import annotations

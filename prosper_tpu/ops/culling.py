@@ -13,7 +13,7 @@ MeshletCuller):
     diameter, reverse-z min 2x2 gather, closest-depth compare (:109-183)
   - visible list + optionally the occluded list as second-phase input
 - the dispatch-args writer becomes the list count (no indirect dispatch
-  on TPU; downstream ops mask by count)
+  inside a jit; downstream ops mask by count)
 
 Draw stats (drawn meshlet count) = mask sums, replacing the shader
 atomics (forward.mesh:117-121).

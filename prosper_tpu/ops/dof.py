@@ -14,7 +14,7 @@ Parity with /root/reference/res/shader/dof/* and src/render/dof/*:
   weight; fg upscale via the bilateral filter (combine.comp)
 
 Static octaweb offsets are unrolled (121 samples); per-pixel radii scale
-them — everything stays dense VPU math at half resolution.
+them — everything stays dense elementwise math at half resolution.
 """
 
 from __future__ import annotations

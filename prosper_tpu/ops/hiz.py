@@ -3,7 +3,7 @@
 Parity with /root/reference/res/shader/hiz_downsampler.comp (AMD FFX SPD
 single-dispatch downsampler): reverse-z MIN reduction, power-of-2 rounded
 dimensions, <=12 mips, out-of-bounds reads clamp to 1 (near, neutral for
-min). On TPU the whole pyramid is one jit region of strided min-reductions
+min). Here the whole pyramid is one jit region of strided min-reductions
 (XLA fuses the chain); the single-pass SPD structure exists to avoid
 inter-dispatch barriers, which jit program order already provides
 (SURVEY.md §7: barriers -> program order).

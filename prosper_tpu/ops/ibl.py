@@ -232,10 +232,10 @@ def prefilter_radiance(env: jnp.ndarray, res: int = 128, n_mips: int = 8, n_samp
     """List of (6, res>>m, res>>m, 3) GGX-prefiltered mips (Karis).
 
     One jit call per mip, with the face-direction grid passed as an
-    argument: compiling all mips into a single program miscompiles on
-    the TPU stack (mips 3-6 came back NaN on the -x/-y/±z faces; the
-    identical per-mip program is bit-clean). Prefiltering is a one-time
-    build step, so per-mip dispatch costs nothing.
+    argument: compiling all mips into a single program once miscompiled
+    on an earlier XLA backend (mips 3-6 came back NaN on the -x/-y/±z
+    faces; the identical per-mip program is bit-clean). Prefiltering is
+    a one-time build step, so per-mip dispatch costs nothing.
     """
     mips = []
     for m in range(n_mips):

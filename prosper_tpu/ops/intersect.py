@@ -1,5 +1,5 @@
-"""Ray-primitive intersection math (pure jnp, used by both the XLA
-reference tracer and the Pallas kernels).
+"""Ray-primitive intersection math (pure jnp) for the plain XLA tracer;
+cuda/trace_bvh.cu repeats the Moller-Trumbore test line for line.
 
 This replaces the Vulkan RT pipeline's fixed-function triangle/AABB tests
 (/root/reference/src/render/RtReference.cpp RT pipeline + BLAS/TLAS,
@@ -9,6 +9,7 @@ reference's RT pipeline defaults.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 _DET_EPS = 1e-10
@@ -40,60 +41,68 @@ def moller_trumbore(o, d, v0, e1, e2, t_min, t_max):
     return hit, t, u, v
 
 
-def ray_aabb(o, inv_d, bmin, bmax, t_min, t_max):
-    """Exact slab test for individual rays. All (...,3) broadcastable.
-    Returns hit mask."""
-    t0 = (bmin - o) * inv_d
-    t1 = (bmax - o) * inv_d
-    tsm = jnp.minimum(t0, t1)
-    tbg = jnp.maximum(t0, t1)
-    enter = jnp.maximum(jnp.max(tsm, axis=-1), t_min)
-    exit_ = jnp.minimum(jnp.min(tbg, axis=-1), t_max)
-    return enter <= exit_
+def _split(a):
+    """a = hi + lo exactly, each with at most 12 significant bits, so
+    products of halves are exact in float32 (Dekker's split by masking
+    the low mantissa bits; no multiply that FMA contraction could
+    change)."""
+    bits = jax.lax.bitcast_convert_type(a, jnp.uint32) & jnp.uint32(0xFFFFF000)
+    hi = jax.lax.bitcast_convert_type(bits, jnp.float32)
+    return hi, a - hi
 
 
-def packet_aabb_enter_exit(o_lo, o_hi, d_lo, d_hi, bmin, bmax):
-    """Conservative interval-arithmetic slab ENTRY/EXIT distances of a ray
-    packet vs AABBs; axes with sign-mixed directions are non-restricting.
-    Returns (enter, exit)."""
-    pos = d_lo > 0.0
-    neg = d_hi < 0.0
-    uniform = pos | neg
-    inv_a = jnp.where(uniform, 1.0 / jnp.where(uniform, d_hi, 1.0), 0.0)
-    inv_b = jnp.where(uniform, 1.0 / jnp.where(uniform, d_lo, 1.0), 0.0)
+def _two_prod(a, b):
+    """a * b = p + e exactly (Dekker)."""
+    p = a * b
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    return p, ((ah * bh - p) + ah * bl + al * bh) + al * bl
 
-    lo0 = bmin - o_hi
-    hi0 = bmin - o_lo
-    lo1 = bmax - o_hi
-    hi1 = bmax - o_lo
 
-    def imul_min(alo, ahi, ba, bb):
-        return jnp.minimum(
-            jnp.minimum(alo * ba, alo * bb), jnp.minimum(ahi * ba, ahi * bb)
-        )
+def _two_sum(a, b):
+    """a + b = s + e exactly (Knuth)."""
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
 
-    def imul_max(alo, ahi, ba, bb):
-        return jnp.maximum(
-            jnp.maximum(alo * ba, alo * bb), jnp.maximum(ahi * ba, ahi * bb)
-        )
 
-    t_enter_ax = jnp.minimum(
-        imul_min(lo0, hi0, inv_a, inv_b), imul_min(lo1, hi1, inv_a, inv_b)
-    )
-    t_exit_ax = jnp.maximum(
-        imul_max(lo0, hi0, inv_a, inv_b), imul_max(lo1, hi1, inv_a, inv_b)
-    )
-    big = jnp.float32(3e38)
-    t_enter_ax = jnp.where(uniform, t_enter_ax, -big)
-    t_exit_ax = jnp.where(uniform, t_exit_ax, big)
-    # inverted (masked-out) AABBs must never overlap: the interval
-    # endpoint min/max above would otherwise normalize min>max boxes
-    # into huge valid ones (render/gbuffer._masked_aabbs culling)
-    invalid = jnp.any(bmin > bmax, axis=-1)
-    return (
-        jnp.where(invalid, big, jnp.max(t_enter_ax, axis=-1)),
-        jnp.where(invalid, -big, jnp.min(t_exit_ax, axis=-1)),
-    )
+def _dot2(xs, ys):
+    """Sum of x * y over double-float pairs x = (hi, lo), y = (hi, lo),
+    in twice the working precision (Ogita-Rump-Oishi Dot2), rounded once
+    to float32."""
+    s = jnp.zeros_like(xs[0][0])
+    c = jnp.zeros_like(s)
+    for (xh, xl), (yh, yl) in zip(xs, ys):
+        p, e = _two_prod(xh, yh)
+        s, f = _two_sum(s, p)
+        c = c + (e + f + (xh * yl + xl * yh))
+    return s + c
+
+
+def exact_hit_t(o, d, v0, e1, e2):
+    """Ray parameter of the intersection with the triangle's plane,
+    t = (v0 - o) . n / (d . n) with n = e1 x e2, evaluated in
+    double-float arithmetic and rounded to float32.
+
+    Moller-Trumbore's float32 t loses about ulp / |cos| of relative
+    accuracy at a grazing angle, so two correct implementations disagree
+    there by 1e-4 or more. Evaluated this way t is within a few ulps of
+    the exact value of the float inputs; the CUDA tracer computes the
+    same quantity in float64, so the two agree to float rounding.
+    """
+    z = jnp.zeros_like(o[..., 0])
+
+    def cross_comp(i, j):
+        # n_k = e1_i e2_j - e1_j e2_i as a double-float (hi, lo)
+        p1, r1 = _two_prod(e1[..., i], e2[..., j])
+        p2, r2 = _two_prod(e1[..., j], e2[..., i])
+        s, r = _two_sum(p1, -p2)
+        return _two_sum(s, r + (r1 - r2))
+
+    n = [cross_comp(1, 2), cross_comp(2, 0), cross_comp(0, 1)]
+    w = [_two_sum(v0[..., k], -o[..., k]) for k in range(3)]
+    dd = [(d[..., k], z) for k in range(3)]
+    return _dot2(w, n) / _dot2(dd, n)
 
 
 def packet_aabb_overlap(
@@ -144,70 +153,6 @@ def packet_aabb_overlap(
     # outside the slab and can never move in; conservatively keep it open
     enter = jnp.max(t_enter_ax, axis=-1)
     exit_ = jnp.min(t_exit_ax, axis=-1)
-    # inverted (masked-out) AABBs never overlap (see packet_aabb_enter_exit)
+    # inverted (masked-out) AABBs never overlap
     valid = jnp.all(bmin <= bmax, axis=-1)
     return valid & (enter <= exit_) & (exit_ >= 0.0) & (enter <= t_max)
-
-
-def packet_aabb_overlap_2d(o_lo, o_hi, d_lo, d_hi, bmin, bmax, t_max):
-    """packet_aabb_overlap for the (packets x AABBs) dense-cull shape,
-    computed PER AXIS with (P, A) temps: broadcasting to (P, A, 3) puts
-    a 3-wide minor dim on the TPU lane axis, which pads to 128 lanes —
-    a 40x memory bloat that made the trivial cull cost 26 ms at
-    wavefront scale (275 packets x 766 clusters, v5e round 4).
-
-    o_lo/o_hi/d_lo/d_hi: (P, 3) packet bounds; bmin/bmax: (A, 3);
-    t_max: (P,). Returns (P, A) bool, same semantics as
-    packet_aabb_overlap.
-    """
-    big = jnp.float32(3e38)
-    P = o_lo.shape[0]
-    A = bmin.shape[0]
-    enter = jnp.full((P, A), -big, jnp.float32)
-    exit_ = jnp.full((P, A), big, jnp.float32)
-    for ax in range(3):
-        dlo = d_lo[:, ax:ax + 1]
-        dhi = d_hi[:, ax:ax + 1]
-        olo = o_lo[:, ax:ax + 1]
-        ohi = o_hi[:, ax:ax + 1]
-        bmn = bmin[None, :, ax]
-        bmx = bmax[None, :, ax]
-        pos = dlo > 0.0
-        neg = dhi < 0.0
-        uniform = pos | neg
-        inv_a = jnp.where(uniform, 1.0 / jnp.where(uniform, dhi, 1.0), 0.0)
-        inv_b = jnp.where(uniform, 1.0 / jnp.where(uniform, dlo, 1.0), 0.0)
-        lo0 = bmn - ohi
-        hi0 = bmn - olo
-        lo1 = bmx - ohi
-        hi1 = bmx - olo
-
-        def imul_min(alo, ahi, ba, bb):
-            return jnp.minimum(
-                jnp.minimum(alo * ba, alo * bb),
-                jnp.minimum(ahi * ba, ahi * bb),
-            )
-
-        def imul_max(alo, ahi, ba, bb):
-            return jnp.maximum(
-                jnp.maximum(alo * ba, alo * bb),
-                jnp.maximum(ahi * ba, ahi * bb),
-            )
-
-        en_ax = jnp.minimum(
-            imul_min(lo0, hi0, inv_a, inv_b), imul_min(lo1, hi1, inv_a, inv_b)
-        )
-        ex_ax = jnp.maximum(
-            imul_max(lo0, hi0, inv_a, inv_b), imul_max(lo1, hi1, inv_a, inv_b)
-        )
-        en_ax = jnp.where(uniform, en_ax, -big)
-        ex_ax = jnp.where(uniform, ex_ax, big)
-        enter = jnp.maximum(enter, en_ax)
-        exit_ = jnp.minimum(exit_, ex_ax)
-    valid = jnp.all(bmin <= bmax, axis=-1)[None, :]
-    return (
-        valid
-        & (enter <= exit_)
-        & (exit_ >= 0.0)
-        & (enter <= t_max[:, None])
-    )

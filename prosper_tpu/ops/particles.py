@@ -1,4 +1,4 @@
-"""GPU particle system, functional TPU formulation.
+"""GPU particle system, functional formulation.
 
 Parity with /root/reference/src/render/particles/ + res/shader/particles/:
 - Particle state {position+lifetime, normal+spawnRate, velocity+spawnTimer,

@@ -1,6 +1,6 @@
 """Texture sampling: gather + decode + filter over the quad-packed arena.
 
-The TPU analog of Vulkan's sampler2D reads in materials.glsl
+The analog of Vulkan's sampler2D reads in materials.glsl
 (/root/reference/res/shader/scene/materials.glsl:46-121): sRGB decode
 happens per texel BEFORE filtering (matching VK_FORMAT_*_SRGB views);
 glTF sampler wrap modes (REPEAT / CLAMP_TO_EDGE / MIRRORED_REPEAT) ride
@@ -8,8 +8,8 @@ per texture in the table flags (bits 1-4, scene/textures.py).
 
 Arena layout (scene/textures.py): each mip is stored as (H*W, 4) u32
 bilinear quads — texel (x,y) plus its +x/+y/+xy REPEAT neighbors — so a
-bilinear tap is ONE 16-byte row gather (XLA gathers whole minor rows
-fast; four scattered texel gathers were ~4x slower on TPU).
+bilinear tap is ONE 16-byte row gather instead of four scattered texel
+gathers.
 
 Sampling returns linear-space float RGBA.
 """
@@ -155,8 +155,7 @@ def pack_material_tables(materials: dict, arena: dict):
 
 
 def sample_material_packed(arena: dict, mat_idx: jnp.ndarray, uv, lod=None,
-                           duv_major=None, aniso_taps: int = 1,
-                           fixed_mip: int | None = None):
+                           duv_major=None, aniso_taps: int = 1):
     """Fast-path sampleMaterial over the packed tables.
 
     lod=None: base-mip (the RT shaders' derivative-free texture()).
@@ -166,28 +165,11 @@ def sample_material_packed(arena: dict, mat_idx: jnp.ndarray, uv, lod=None,
     duv_major + aniso_taps > 1: anisotropic filtering — lod is then the
     MINOR-axis footprint and every texture takes `aniso_taps` trilinear
     taps along the uv-space major axis (maxAnisotropy=16 sampler parity,
-    WorldData.cpp:693-714).
-    fixed_mip: sample every texture at ONE clamped integer mip instead
-    of base/lod. Secondary-bounce surfaces use this
-    (config.policy.bounce_tap_mip): base-mip taps gather-randomly into
-    the full ~700 MB quad arena at ~46 ns/row HBM latency, while mip>=4
-    shrinks the working set 256x; bounce radiance is hemisphere-averaged
-    so the footprint is huge anyway (wider than mip 4 for typical
-    scenes) — closer to the correct filtered radiance than the
-    reference's derivative-free texture() at base mip, and measured
-    ms-level wins on the PT wavefront."""
+    WorldData.cpp:693-714)."""
     f32 = arena["mat_f32"][mat_idx]  # (R, 8)
     i32 = arena["mat_i32"][mat_idx]  # (R, 16)
 
-    if fixed_mip is not None:
-        def tex_sample(tex_ids, entry0, linear=False):
-            del entry0
-            mip = jnp.minimum(
-                fixed_mip, arena["n_mips"][tex_ids].astype(jnp.int32) - 1
-            )
-            return sample_bilinear(arena, tex_ids, uv, mip,
-                                   assume_linear=linear)
-    elif lod is None:
+    if lod is None:
         def tex_sample(tex_ids, entry0, linear=False):
             del tex_ids
             return _bilinear_entry(arena, entry0, uv, assume_linear=linear)

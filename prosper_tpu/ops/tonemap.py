@@ -1,9 +1,12 @@
-"""Display transform: exposure -> HSV contrast -> Tony McMapface 3D LUT ->
-inverse gamma. Parity with /root/reference/res/shader/tone_map.comp:17-60.
+"""Display transform: exposure -> HSV contrast -> 48^3 display LUT ->
+inverse gamma. Parity with the reference's tone_map.comp:17-60.
 
-The 48^3 LUT ships with the reference
-(res/texture/tony_mc_mapface.dds, R9G9B9E5) and is sampled trilinearly
-with texel-center alignment exactly like the GLSL.
+The reference samples Tony McMapface's 48^3 LUT
+(res/texture/tony_mc_mapface.dds, R9G9B9E5) trilinearly with texel-center
+alignment; so does `tone_map` here, with whatever LUT it is given. The
+repository does not ship Tony's LUT: `generated_lut()` builds the default
+in code, and `load_tony_mc_mapface(path)` reads the real one from an
+explicit path (the CLI's --lut).
 """
 
 from __future__ import annotations
@@ -15,11 +18,25 @@ from ..io.dds import read_dds
 from ..mathx.color import hsv_to_rgb, rgb_to_hsv
 
 LUT_DIMS = 48
-_TONY_PATH = "/root/reference/res/texture/tony_mc_mapface.dds"
 
 
-def load_tony_mc_mapface(path: str = _TONY_PATH) -> np.ndarray:
-    """Double-quad-packed LUT (48^3, 24) float32 (see pack_lut_quads)."""
+def generated_lut() -> np.ndarray:
+    """The default display LUT, double-quad-packed (48^3, 24) float32.
+
+    It is the identity in the LUT's encoded space (texel i holds i / 47),
+    so the display curve is the plain `x / (1 + x)` per channel that
+    tony_mc_mapface() encodes with. This departs from Tony McMapface,
+    which also desaturates bright colors toward white and shapes the
+    hue of highlights; pass the real LUT through load_tony_mc_mapface
+    for that look."""
+    ramp = np.arange(LUT_DIMS, dtype=np.float32) / (LUT_DIMS - 1)
+    z, y, x = np.meshgrid(ramp, ramp, ramp, indexing="ij")
+    return pack_lut_quads(np.stack([x, y, z], axis=-1))
+
+
+def load_tony_mc_mapface(path: str) -> np.ndarray:
+    """Tony McMapface's LUT from its DDS file, double-quad-packed
+    (48^3, 24) float32 (see pack_lut_quads)."""
     img = read_dds(path)
     lut = img.mips[0]
     assert lut.shape == (LUT_DIMS, LUT_DIMS, LUT_DIMS, 3)

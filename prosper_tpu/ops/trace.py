@@ -1,120 +1,149 @@
-"""Closest-hit / any-hit ray tracing over the flattened cluster scene.
+"""Closest-hit / any-hit ray tracing over the flattened cluster scene,
+and the one place that picks the tracer for the platform.
 
-TPU-first traversal design (SURVEY.md §7 hard part #1): instead of a
-per-ray divergent BVH walk (pointer chasing is hostile to the VPU), rays
-are processed in coherent tiles; a conservative packet-vs-cluster-AABB cull
-produces per-tile cluster work lists, then each tile intersects whole
-128-triangle cluster slabs as dense (LANES x 128) vector ops — gathers
-become regular tile loads and the FLOPs land on the VPU at full width.
+Two tracers share one contract (`Tracer.closest` -> dict t, tri, u, v;
+`Tracer.any` -> (R,) bool occluded; both take rays (o, d), t_min, t_max
+and an optional per-cluster mask of clusters to trace):
 
-This module is the pure-XLA implementation (runs on CPU for tests and on
-TPU as the fallback path); ops/trace_pallas.py holds the hand-tiled kernel
-with the same semantics.
+- the plain XLA tracer below (`trace_closest` / `trace_any`): rays in
+  TILE-ray packets, a conservative packet-vs-cluster-AABB cull gives
+  each packet a cluster list, and each listed 128-triangle cluster slab
+  is intersected densely. It runs on the CPU and is the reference the
+  other tracer is tested against;
+- the CUDA BVH tracer (ops/trace_cuda.py): one thread per ray walks the
+  per-frame cluster BVH with an ordered stack, on NVIDIA Hopper.
+
+`tracer_kind` is the only platform decision in the renderer: every
+render pass asks `make_tracer`, which asks it.
 
 Replaces: VK ray tracing pipeline + BLAS/TLAS traversal
-(/root/reference/src/render/RtReference.cpp:301-527, TLAS rebuild
-World.cpp:749-802).
+(RtReference.cpp:301-527, TLAS rebuild World.cpp:749-802 in the
+reference).
 """
 
 from __future__ import annotations
 
+import contextlib
 from functools import partial
+from typing import Callable, NamedTuple
 
 import jax
 import jax.numpy as jnp
 
-from .. import config
-from .intersect import moller_trumbore, packet_aabb_overlap
+from .intersect import exact_hit_t, moller_trumbore, packet_aabb_overlap
 
-TILE = 256  # rays per packet: 2 VPU sublane-rows of 128 lanes
+TILE = 256  # rays per packet of the plain tracer
 CLUSTER_PAD = 128  # triangles per cluster slab (scene/meshlets.py)
 
+# The measured winner on each platform (PERF.md, "ray tracer").
+_TRACER_BY_PLATFORM = {"cpu": "plain", "gpu": "cuda"}
+_forced: str | None = None
 
-def make_tracer(tris: dict, wc_min, wc_max, bvh=None, packed9=None):
-    """Returns (closest_fn, any_fn) with signature (o, d, t_min, t_max).
 
-    On TPU backends the Pallas kernels are used: the in-kernel BVH
-    descent (ops/trace_bvh) when `bvh=(bounds, meta)` node arrays are
-    provided (the per-frame TLAS analog, scene/world.frame_arrays), else
-    the flat cull-list kernels (ops/trace_pallas). On CPU the XLA
-    reference path runs (Pallas interpret mode is far too slow for full
-    frames).
+def tracer_kind(platform: str | None = None) -> str:
+    """"plain" or "cuda": the tracer for `platform` (default: the platform
+    JAX computes on). The single platform decision of the renderer; any
+    platform without a tracer raises."""
+    if _forced is not None:
+        return _forced
+    if platform is None:
+        platform = jax.default_backend()
+    try:
+        return _TRACER_BY_PLATFORM[platform]
+    except KeyError:
+        raise ValueError(
+            f"no ray tracer for platform {platform!r} "
+            f"(supported: {sorted(_TRACER_BY_PLATFORM)})"
+        ) from None
 
-    packed9: optional precomputed (C, 9, 128) Möller slabs
-    (prepare_geometry) so per-frame jits skip the device re-pack.
-    """
-    import jax
 
-    from functools import partial as _partial
+@contextlib.contextmanager
+def forced_tracer(kind: str):
+    """Trace every pass with `kind` inside the block (parity checks run
+    the plain tracer on the GPU). Clears JAX's caches on entry and exit
+    so jitted frames are re-staged with the forced tracer."""
+    global _forced
+    if kind not in _TRACER_BY_PLATFORM.values():
+        raise ValueError(f"unknown tracer {kind!r}")
+    prev = _forced
+    jax.clear_caches()
+    _forced = kind
+    try:
+        yield
+    finally:
+        _forced = prev
+        jax.clear_caches()
 
-    if jax.default_backend() != "cpu":
-        from . import trace_pallas
 
-        packed = (
-            packed9 if packed9 is not None else trace_pallas.pack_tris(tris)
-        )
-        if bvh is not None:
-            from . import trace_bvh
+class Tracer(NamedTuple):
+    """closest(o, d, t_min, t_max, cluster_mask=None) -> hit dict;
+    any(o, d, t_min, t_max, cluster_mask=None) -> (R,) bool."""
 
-            bounds, meta = bvh
-            # any-hit descent policy (ONE decision point, set through
-            # config.policy / the --any-tracer CLI flag): measured
-            # numbers next to the knob in config.KernelPolicy.
-            any_impl = (
-                trace_bvh.trace_any_bvh_dense
-                if config.policy.any_tracer == "dense"
-                else trace_bvh.trace_any_bvh
-            )
-            return (
-                _partial(trace_bvh.trace_closest_bvh, packed, bounds, meta),
-                _partial(any_impl, packed, bounds, meta),
-            )
-        return (
-            _partial(trace_pallas.trace_closest_pallas, packed, wc_min, wc_max),
-            _partial(trace_pallas.trace_any_pallas, packed, wc_min, wc_max),
-        )
+    closest: Callable
+    any: Callable
+
+
+def masked_aabbs(wc_min, wc_max, mask):
+    """Inverted (empty) AABBs for clusters outside `mask`: the plain
+    tracer's packet cull then never visits them (the draw-list analog)."""
+    big = jnp.float32(3e38)
     return (
-        _partial(trace_closest, tris, wc_min, wc_max),
-        _partial(trace_any, tris, wc_min, wc_max),
+        jnp.where(mask[:, None], wc_min, big),
+        jnp.where(mask[:, None], wc_max, -big),
+    )
+
+
+def make_tracer(static_scene: dict, frame: dict) -> Tracer:
+    """The tracer for this frame's geometry on the current platform.
+
+    cluster_mask (C,) bool selects the clusters a trace may hit (two-phase
+    culling, the transparent pass's blend-only trace): the plain tracer
+    folds it into inverted AABBs, the CUDA tracer skips masked leaves."""
+    tris = frame_geometry(static_scene, frame)["tris"]
+    wc_min, wc_max = frame["wc_aabb_min_w"], frame["wc_aabb_max_w"]
+    if tracer_kind() == "plain":
+
+        def _plain(fn, o, d, t_min, t_max, cluster_mask=None):
+            mn, mx = wc_min, wc_max
+            if cluster_mask is not None:
+                mn, mx = masked_aabbs(mn, mx, cluster_mask)
+            return fn(tris, mn, mx, o, d, t_min, t_max)
+
+        return Tracer(partial(_plain, trace_closest), partial(_plain, trace_any))
+
+    from . import trace_cuda
+
+    bvh = frame_bvh(frame)
+    assert bvh is not None, "the CUDA tracer needs the frame's BVH"
+    args = (tris, static_scene["wc_tri_count"], bvh[0], bvh[1])
+    return Tracer(
+        partial(trace_cuda.trace_closest_cuda, *args),
+        partial(trace_cuda.trace_any_cuda, *args),
     )
 
 
 def prepare_geometry(static_scene: dict, transforms, normal_transforms):
     """Device-side world-space geometry prep, hoisted OUT of the frame jits.
 
-    Re-transforming and re-packing every triangle inside each frame's jit
-    is a full BLAS refit per frame — the reference builds BLAS device data
-    once and only rebuilds the instance-level TLAS per frame
-    (/root/reference/src/scene/World.cpp:749-802). Measured on v5e
-    (FlightHelmet, round 4): the in-jit pack costs ~16 ms device per
-    frame across every mode. Callers stash the result at frame["geom"]
-    (see GeometryCache for the recompute-on-transform-change pacing);
-    frame_geometry() falls back to inline computation when absent.
+    Re-transforming every triangle inside each frame's jit is a full BLAS
+    refit per frame; the reference builds BLAS device data once and only
+    rebuilds the instance-level TLAS per frame (World.cpp:749-802).
+    Callers stash the result at frame["geom"] (see GeometryCache for the
+    recompute-on-transform-change pacing); frame_geometry() falls back to
+    inline computation when absent.
 
-    Returns: {"tris": world-space tri dict} plus, on TPU backends,
-    {"packed9": (C, 9, 128) Möller slabs, "packed_full": (C, 40, 128)
-    attribute slabs}.
+    Returns {"tris": world-space tri dict}.
     """
     frame_like = {
         "transforms": transforms,
         "normal_transforms": normal_transforms,
     }
-    out = {"tris": world_triangles(static_scene, frame_like)}
-    if jax.default_backend() != "cpu":
-        from . import trace_pallas
-        from .trace_pallas_full import pack_tris_full
-
-        out["packed9"] = trace_pallas.pack_tris(out["tris"])
-        out["packed_full"] = pack_tris_full(static_scene, frame_like)
-        from .trace_bvh import attr_rows_from_packed
-
-        out["attr_rows"] = attr_rows_from_packed(out["packed_full"])
-    return out
+    return {"tris": world_triangles(static_scene, frame_like)}
 
 
 def frame_geometry(static_scene: dict, frame: dict) -> dict:
     """frame["geom"] when the caller prepared it, else the inline
-    equivalent (tests/scripts that build raw frame dicts keep working)."""
+    equivalent (tests that build raw frame dicts keep working)."""
     geom = frame.get("geom")
     if geom is not None:
         return geom
@@ -126,7 +155,7 @@ def frame_geometry(static_scene: dict, frame: dict) -> dict:
 class GeometryCache:
     """Host-side pacing for prepare_geometry: recompute only when the
     instance transforms change (animation), reuse the device arrays
-    otherwise — the TPU analog of static BLAS + per-frame TLAS.
+    otherwise — the analog of static BLAS + per-frame TLAS.
     """
 
     def __init__(self):
@@ -151,214 +180,11 @@ class GeometryCache:
         return self._val
 
 
-BOUNCE_TILE = 128  # rays/packet for INCOHERENT bounce-closest traces.
-# Packet union-visit waste scales with packet size (FlightHelmet bounce
-# set, scripts/visit_union_analysis.py: 41 leaf visits per 256-ray
-# packet vs 26.8 per 128 vs a 2.6/ray ideal). Measured on v5e: bounce
-# closest 37.1 -> 30.2 ms at tile=128; SHADOW rays stay at 256 — they
-# converge on one light so packets are coherent and halving them only
-# doubles descent work (10.6 -> 12.6 ms). Primary rays keep 256.
-
-LEAFMAJOR_MAX_CLUSTERS = 4096  # dense pair enumeration is O(R x C)
-
-
-def bounce_policy(n_clusters: int, bvh, prefer: str | None = None) -> bool:
-    """True when incoherent rays should use the leaf-major pair tracer
-    (the decision behind make_bounce_tracer, callable without slabs).
-    prefer=None reads config.policy.bounce_tracer (the --bounce-tracer
-    CLI flag; packet is the measured default)."""
-    import jax
-
-    if prefer is None:
-        prefer = config.policy.bounce_tracer
-    return (
-        prefer == "leafmajor"
-        and jax.default_backend() != "cpu"
-        and bvh is not None
-        and n_clusters <= LEAFMAJOR_MAX_CLUSTERS
-    )
-
-
-def make_bounce_tracer(packed, wc_min, wc_max, bvh, prefer=None):
-    """THE policy for incoherent (bounce/shadow) ray tracing — the one
-    decision point for leaf-major pair blocks vs packet BVH traversal
-    (previously three hardcoded gates across render/pt.py and
-    render/restir.py).
-
-    Returns None when callers should use their packet path (CPU backend,
-    no BVH node arrays, cluster count beyond the dense enumerator's
-    O(R x C) range, or prefer="packet"). Otherwise returns a dict:
-      any:          (o, d, t_min, t_max) -> occluded (R,) bool
-      closest_full: same signature -> full attr hit dict, or None when
-                    `packed` has geometry-only rows (< 38)
-    Both are overflow-EXACT: on pair-capacity overflow the wavefront
-    re-traces through the packet BVH kernel inside lax.cond
-    (trace_leafmajor.*_safe), matching the reference's always-exact
-    traversal (res/shader/rt/reference/main.rgen:196-226).
-    """
-    if not bounce_policy(wc_min.shape[0], bvh, prefer):
-        return None
-    from functools import partial as _partial
-
-    from . import trace_leafmajor as lm
-
-    bounds, meta = bvh
-    closest_full = None
-    if packed.shape[1] >= 38:
-        closest_full = _partial(
-            lm.trace_closest_leafmajor_full_safe,
-            packed, bounds, meta, wc_min, wc_max,
-        )
-    return {
-        "any": _partial(
-            lm.trace_any_leafmajor_safe, packed, bounds, meta, wc_min, wc_max
-        ),
-        "closest_full": closest_full,
-    }
-
-
 def frame_bvh(frame: dict):
     """(bounds, meta) from a frame dict, or None when absent."""
     if "bvh_bounds" in frame and "bvh_meta" in frame:
         return frame["bvh_bounds"], frame["bvh_meta"]
     return None
-
-
-def block_pixel_order(width: int, height: int, block: int = 16):
-    """Pixel traversal order that groups 16x16 screen blocks into ray
-    tiles (256 rays): compact packet bounds instead of row strips.
-
-    Returns (px, py, inverse) — px/py: (R,) uint32 in block order;
-    `inverse` scatters block-order results back to row-major:
-    row_major = blocked[inverse].
-    """
-    import numpy as np
-
-    bx = -(-width // block)
-    by = -(-height // block)
-    ys, xs = np.meshgrid(np.arange(by * block), np.arange(bx * block), indexing="ij")
-    # block-major order
-    order = np.argsort(
-        ((ys // block) * bx + (xs // block)) * (block * block)
-        + (ys % block) * block
-        + (xs % block),
-        axis=None,
-        kind="stable",
-    )
-    px = (xs.reshape(-1)[order]).astype(np.uint32)
-    py = (ys.reshape(-1)[order]).astype(np.uint32)
-    keep = (px < width) & (py < height)
-    px, py = px[keep], py[keep]
-    flat = py.astype(np.int64) * width + px.astype(np.int64)
-    inverse = np.argsort(flat, kind="stable")
-    return px, py, inverse
-
-
-def block_order_padded(width: int, height: int, block: int = 16):
-    """Like block_pixel_order but over the FULL padded block grid (height
-    rounded up to a 2*block multiple so 16 px blocks tile the 32 px
-    froxel tiles evenly): the resulting permutation block-order <->
-    row-major is REGULAR, so the unsort is a reshape/transpose instead of
-    a 2M-row gather (measured 24 ms/frame at 1080p x 16 channels).
-
-    Block traversal is TILE-MAJOR (round 5): the four 16 px blocks of
-    each 32 px froxel tile are CONSECUTIVE — order (tile_y, tile_x,
-    sub_by, sub_bx, iy, ix) — so a froxel tile is exactly 1024
-    consecutive rows and shade_tiles' tile assembly is a per-channel
-    reshape instead of a 7-D shuffle (the (34,2,60,2,16,16,C)
-    broadcast/concat/transpose chain was ~10 ms of the 1080p deferred
-    xplane). Every consecutive 256-row group is still one 16 px block,
-    so ray tiles, tile_apply compaction and the primary tile mask keep
-    their bounds.
-
-    Returns (px, py, padded_height); rays with py >= height are padding
-    (callers mark them invalid). width must be a multiple of `block`.
-    """
-    import numpy as np
-
-    assert width % block == 0, width
-    hp = -(-height // (2 * block)) * (2 * block)
-    by, bx = hp // block, width // block
-    assert by % 2 == 0 and bx % 2 == 0, (width, height)
-    ty, tx = by // 2, bx // 2
-    yy, xx = np.meshgrid(
-        np.arange(block, dtype=np.uint32),
-        np.arange(block, dtype=np.uint32),
-        indexing="ij",
-    )
-    # (ty, tx, sby, sbx, iy, ix)
-    px = (
-        np.arange(tx, dtype=np.uint32)[None, :, None, None, None, None]
-        * (2 * block)
-        + np.arange(2, dtype=np.uint32)[None, None, None, :, None, None]
-        * block
-        + xx[None, None, None, None]
-    )
-    py = (
-        np.arange(ty, dtype=np.uint32)[:, None, None, None, None, None]
-        * (2 * block)
-        + np.arange(2, dtype=np.uint32)[None, None, :, None, None, None]
-        * block
-        + yy[None, None, None, None]
-    )
-    shape = (ty, tx, 2, 2, block, block)
-    px = np.broadcast_to(px, shape).reshape(-1)
-    py = np.broadcast_to(py, shape).reshape(-1)
-    return px.copy(), py.copy(), hp
-
-
-def blocks_to_rows(a, width: int, height: int, block: int = 16):
-    """(R_pad, ...) in block_order_padded order -> (height*width, ...)
-    row-major, via a regular reshape/transpose (no gather)."""
-    hp = a.shape[0] // width
-    ty, tx = hp // (2 * block), width // (2 * block)
-    rest = a.shape[1:]
-    img = a.reshape((ty, tx, 2, 2, block, block) + rest)
-    # (ty, tx, sby, sbx, iy, ix) -> (ty, sby, iy, tx, sbx, ix)
-    img = jnp.transpose(
-        img, (0, 2, 4, 1, 3, 5) + tuple(range(6, 6 + len(rest)))
-    ).reshape((hp, width) + rest)
-    return img[:height].reshape((height * width,) + rest)
-
-
-def rows_to_blocks(a, width: int, height: int, block: int = 16):
-    """(height*width, ...) row-major -> (R_pad, ...) block order (pads
-    extra rows with zeros)."""
-    hp = -(-height // (2 * block)) * (2 * block)
-    rest = a.shape[1:]
-    img = a.reshape((height, width) + rest)
-    if hp != height:
-        img = jnp.concatenate(
-            [img, jnp.zeros((hp - height, width) + rest, a.dtype)], axis=0
-        )
-    ty, tx = hp // (2 * block), width // (2 * block)
-    img = img.reshape((ty, 2, block, tx, 2, block) + rest)
-    # (ty, sby, iy, tx, sbx, ix) -> (ty, tx, sby, sbx, iy, ix)
-    img = jnp.transpose(
-        img, (0, 3, 1, 4, 2, 5) + tuple(range(6, 6 + len(rest)))
-    )
-    return img.reshape((hp * width,) + rest)
-
-
-def block_inverse16(width: int, height: int, block: int = 16):
-    """Segment-level inverse of block_pixel_order: row-major 16-pixel
-    segment s is block-order segment inv16[s]. Valid because every 16
-    consecutive block-order lanes are one within-block x-run = 16
-    consecutive row-major pixels (requires width % 16 == 0). Permuting
-    (R//16, 16, ...) rows costs 1/16th of the per-pixel gather.
-    """
-    assert width % 16 == 0, width
-    _, _, inverse = block_pixel_order(width, height, block)
-    return (inverse[::16] // 16).astype(inverse.dtype)
-
-
-def permute16(a, inv16):
-    """Apply a segment-level permutation (block_inverse16) to (R, ...).
-    Moving (R/16, 16, k) segment rows costs 1/16th of a per-pixel
-    gather (flat (R/16, 16*k) rows measured the same)."""
-    R = a.shape[0]
-    seg = a.reshape((R // 16, 16) + a.shape[1:])
-    return seg[inv16].reshape(a.shape)
 
 
 def _pad_rays(ray_o, ray_d):
@@ -494,9 +320,14 @@ def trace_closest(
         return bt, btri, bu, bv
 
     bt, btri, bu, bv = jax.vmap(tile_trace)(o_t, d_t, t_max_t, lists, counts)
+    bt, btri = bt.reshape(R)[:R_out], btri.reshape(R)[:R_out]
+    # the winner's t evaluated accurately (grazing hits), as the CUDA
+    # tracer does, so the two tracers agree to float rounding
+    k = jnp.maximum(btri, 0)
+    t_hit = exact_hit_t(ray_o[:R_out], ray_d[:R_out], v0[k], e1[k], e2[k])
     return {
-        "t": bt.reshape(R)[:R_out],
-        "tri": btri.reshape(R)[:R_out],
+        "t": jnp.where(btri >= 0, t_hit, bt),
+        "tri": btri,
         "u": bu.reshape(R)[:R_out],
         "v": bv.reshape(R)[:R_out],
     }

@@ -28,23 +28,14 @@ def shade_deferred(
     height: int,
     ibl_data: dict | None = None,
     y_offset=0,
-    full_height: int | None = None,
-    pixel_order: str = "row",
 ):
-    """Clustered deferred shading over the flat G-buffer.
+    """Clustered deferred shading over the flat row-major G-buffer.
 
-    y_offset/full_height shade a horizontal band of a taller frame
-    (multi-chip pixel sharding): `height` rows starting at absolute row
-    y_offset; froxel coordinates stay absolute.
-    pixel_order="block16": the G-buffer (and the returned color) are in
-    trace.block_order_padded order (TPU fast path — no row-major
-    round-trip)."""
-    blocked = pixel_order == "block16"
-    if not blocked:
-        px = jnp.tile(jnp.arange(width, dtype=jnp.int32), height)
-        py = (
-            jnp.repeat(jnp.arange(height, dtype=jnp.int32), width) + y_offset
-        )
+    y_offset shades a horizontal band of a taller frame (multi-device
+    pixel sharding): `height` rows starting at absolute row y_offset;
+    froxel coordinates stay absolute."""
+    px = jnp.tile(jnp.arange(width, dtype=jnp.int32), height)
+    py = jnp.repeat(jnp.arange(height, dtype=jnp.int32), width) + y_offset
 
     # decode G-buffer exactly like loadFromGbuffer (visible_surface.glsl)
     albedo = gbuf["albedo_roughness"][..., :3]
@@ -69,27 +60,16 @@ def shade_deferred(
     }
 
     color = eval_directional_light(surface, lights)
-    if clusters is None:
-        # TPU path: tile-major Pallas kernel — froxel lists loaded once
-        # per 32px tile instead of per pixel (ops/shade_tiles.py)
-        from ..ops.shade_tiles import shade_clustered_tiles
-
-        color = color + shade_clustered_tiles(
-            surface, lights, cam, gbuf["z_cam"], gbuf["valid"], width, height,
-            y_offset=y_offset, full_height=full_height,
-            pixel_order=pixel_order,
-        )
-    else:
-        color = color + eval_clustered_lights(
-            surface,
-            lights,
-            clusters,
-            px,
-            py,
-            gbuf["z_cam"],
-            cam["near"],
-            cam["far"],
-        )
+    color = color + eval_clustered_lights(
+        surface,
+        lights,
+        clusters,
+        px,
+        py,
+        gbuf["z_cam"],
+        cam["near"],
+        cam["far"],
+    )
     if ibl_data is not None:
         from ..ops.ibl import eval_ibl
 
@@ -135,20 +115,11 @@ def render_deferred(
     (Renderer.cpp:485-584): skybox -> transparent -> bloom -> particles ->
     TAA -> DoF -> tone map.
 
-    Returns (display image, aux dict: taa_history, particles, depth).
+    Returns (display image, aux dict: hdr, taa_history, particles,
+    depth, hiz).
     """
     from .gbuffer import render_gbuffer
 
-    # TPU fast path: trace/surface-eval/shade stay in 16px-block order
-    # (the trace's native order) and convert to row-major ONCE, as a
-    # regular transpose — the per-field row-major permutes were ~30% of
-    # the deferred frame. Culling keeps row order (HiZ needs images).
-    blocked = (
-        jax.default_backend() != "cpu"
-        and not use_culling
-        and width % 32 == 0
-    )
-    order = "block16" if blocked else "row"
     # per-pass device attribution: named scopes become HLO op metadata
     # that utils/profiler.profile_passes joins with xplane timings — the
     # GPU-timestamp-scope analog inside one fused jit (Profiler.hpp:19)
@@ -158,62 +129,33 @@ def render_deferred(
             use_culling=use_culling, prev_hiz=prev_hiz,
             lod_bias=-1.0 if use_taa else 0.0,
             alpha_rounds=alpha_rounds,
-            pixel_order=order,
             aniso_taps=aniso_taps,
         )
     with jax.named_scope("light_clustering"):
-        clusters = (
-            None
-            if jax.default_backend() != "cpu"
-            else build_light_clusters(cam, frame["lights"], width, height)
-        )
+        clusters = build_light_clusters(cam, frame["lights"], width, height)
     with jax.named_scope("shading"):
         color = shade_deferred(
             gbuf, clusters, frame["lights"], cam, width, height, ibl_data,
-            pixel_order=order,
         )
     if ibl_data is not None and "env" in ibl_data:
         # skybox background (SkyboxRenderer analog): sample the env along
-        # the view ray for miss pixels — composed in trace order so one
-        # conversion below covers it
+        # the view ray for miss pixels
         from ..ops.ibl import sample_cubemap
         from ..ops.rays import pinhole_rays
 
         with jax.named_scope("skybox"):
-            if blocked:
-                from ..ops import trace as _trace
-
-                px_np, py_np, _hp = _trace.block_order_padded(width, height)
-                uv = jnp.stack(
-                    [
-                        (jnp.asarray(px_np).astype(jnp.float32) + 0.5) / width,
-                        (jnp.asarray(py_np).astype(jnp.float32) + 0.5) / height,
-                    ],
-                    axis=-1,
-                )
-                _, vd = pinhole_rays(cam, uv)
-            else:
-                ys, xs = jnp.meshgrid(
-                    (jnp.arange(height, dtype=jnp.float32) + 0.5) / height,
-                    (jnp.arange(width, dtype=jnp.float32) + 0.5) / width,
-                    indexing="ij",
-                )
-                _, vd = pinhole_rays(
-                    cam, jnp.stack([xs, ys], -1).reshape(height * width, 2)
-                )
+            ys, xs = jnp.meshgrid(
+                (jnp.arange(height, dtype=jnp.float32) + 0.5) / height,
+                (jnp.arange(width, dtype=jnp.float32) + 0.5) / width,
+                indexing="ij",
+            )
+            _, vd = pinhole_rays(
+                cam, jnp.stack([xs, ys], -1).reshape(height * width, 2)
+            )
             sky = sample_cubemap(ibl_data["env"], vd)
             color = jnp.where(gbuf["valid"][..., None], color, sky)
 
-    if blocked:
-        from ..ops import trace as _trace
-
-        def _b2r(a):
-            return _trace.blocks_to_rows(a, width, height)
-    else:
-        def _b2r(a):
-            return a
-
-    hdr = _b2r(color).reshape(height, width, 3)
+    hdr = color.reshape(height, width, 3)
 
     if use_transparent:
         # ForwardRenderer::recordTransparent slot (Renderer.cpp:494-500)
@@ -221,7 +163,7 @@ def render_deferred(
 
         with jax.named_scope("transparent"):
             hdr = transparent_pass(
-                static_scene, frame, arena, cam, hdr, _b2r(gbuf["z_cam"]),
+                static_scene, frame, arena, cam, hdr, gbuf["z_cam"],
                 width, height, ibl_data,
             )
 
@@ -247,7 +189,7 @@ def render_deferred(
         # must advance or spawn/steer noise repeats identically
         with jax.named_scope("particles"):
             st = simulate(particle_state, 1.0 / 60.0, frame_index)
-            depth_img = _b2r(gbuf["depth"]).reshape(height, width)
+            depth_img = gbuf["depth"].reshape(height, width)
             hdr = render_particles(st, hdr, depth_img, cam)
         new_particles = st
 
@@ -256,8 +198,8 @@ def render_deferred(
         from ..ops.taa import taa_resolve
 
         with jax.named_scope("taa"):
-            velocity = _b2r(gbuf["velocity"]).reshape(height, width, 2)
-            depth = _b2r(gbuf["depth"]).reshape(height, width)
+            velocity = gbuf["velocity"].reshape(height, width, 2)
+            depth = gbuf["depth"].reshape(height, width)
             prev = hdr if taa_history is None else taa_history
             hdr = taa_resolve(hdr, prev, velocity, depth)
         new_history = hdr
@@ -267,16 +209,17 @@ def render_deferred(
 
         with jax.named_scope("dof"):
             view_depth = jnp.maximum(
-                -_b2r(gbuf["z_cam"]).reshape(height, width), 1e-3
+                -gbuf["z_cam"].reshape(height, width), 1e-3
             )
             hdr = depth_of_field(hdr, view_depth, cam)
 
     with jax.named_scope("tonemap"):
         img = tone_map(hdr, lut, exposure, contrast)
     aux = {
+        "hdr": hdr,
         "taa_history": new_history,
         "particles": new_particles,
-        "depth": _b2r(gbuf["depth"]).reshape(height, width),
+        "depth": gbuf["depth"].reshape(height, width),
         # preserve()d depth pyramid: next frame's phase-1 occlusion cull
         # tests against it (ForwardRenderer.hpp:142)
         "hiz": gbuf["hiz"],
@@ -369,6 +312,7 @@ def deferred_entry(
         frame_index=kwargs.get("frame_index", 0),
     )
     new_state = {
+        "hdr": aux["hdr"],
         "taa_history": aux["taa_history"],
         "particles": aux["particles"],
         "bloom_kernel": bloom_kernel,

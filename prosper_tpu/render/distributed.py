@@ -1,12 +1,12 @@
-"""Multi-chip rendering: pixel-parallel sharding over a device mesh.
+"""Multi-device rendering: pixel-parallel sharding over a device mesh.
 
 The reference is single-GPU; its scale axes are pixels/tiles/rays
-(SURVEY.md §5). On TPU pods the natural production mapping is SPMD
-pixel-space decomposition: every chip traces a horizontal band of the
-frame with the (small) scene replicated, and frame-level statistics are
-combined with psum over ICI. This module builds that step with
-jax.sharding.Mesh + shard_map — no NCCL/queue analogs, just XLA
-collectives.
+(SURVEY.md §5). The mapping here is SPMD pixel-space decomposition:
+every device traces a horizontal band of the frame with the (small)
+scene replicated, and frame-level statistics are combined with psum.
+This module builds that step with jax.sharding.Mesh + shard_map; XLA
+lowers the collectives (NCCL over NVLink on a GPU host). The mesh is
+flat (1-D), which fits an all-to-all NVLink host.
 
 Axes:
 - "sp": spatial/pixel parallelism (bands of the frame)
@@ -109,7 +109,7 @@ def restir_render_sharded(
     Each chip renders `height/n` rows: G-buffer band (render_gbuffer
     y_offset), initial reservoirs, then spatial reuse against a
     band+halo neighbor image built by exchanging SPATIAL_RADIUS edge
-    rows with adjacent chips over ICI (jax.lax.ppermute — the TPU-native
+    rows with adjacent devices (jax.lax.ppermute — the multi-device
     stand-in for the reference's single-GPU texture fetch across the
     whole frame), and traced shading. Per-pixel RNG streams use absolute
     pixel coordinates, so the result matches the single-chip
@@ -197,8 +197,8 @@ def restir_render_sharded(
             neigh_y0=y0 - halo_up, neigh_rows_h=band_h + halo_up + halo_dn,
         )
         surface["valid"] = gbuf["valid"]
-        tris_r = trace.world_triangles(static_r, frame_r)
-        return restir_shade(surface, lights, li1, ucw1, tris_r, frame_r)
+        tracer = trace.make_tracer(static_r, frame_r)
+        return restir_shade(surface, lights, li1, ucw1, tracer)
 
     out = jax.jit(step)(static_scene, frame, arena, cam)
     return out[: height * width]  # crop band padding (rows past the frame)
@@ -231,12 +231,11 @@ def deferred_render_sharded(
 
     n = mesh.shape["sp"]
     # Bands pad UP to the 32 px froxel tile instead of asserting (1080
-    # rows over 8 chips = 135-row bands used to fail here): each chip
-    # renders ceil(height / n) rows rounded to the tile, rows past the
-    # real frame trace harmlessly below the frustum and are cropped
-    # after the gather. full_height stays the REAL height — the froxel
-    # plane math (shade_tiles.build_tile_light_lists tile_scale) must
-    # match the single-chip grid exactly for band == single-chip light
+    # rows over 8 devices = 135-row bands): each device renders
+    # ceil(height / n) rows rounded to the tile, rows past the real frame
+    # trace harmlessly below the frustum and are cropped after the
+    # gather. The froxel grid stays the full frame's (build_light_clusters
+    # at the REAL height), so every band shades the single-device light
     # sets.
     band_h = -(-height // (n * 32)) * 32
 
@@ -254,14 +253,12 @@ def deferred_render_sharded(
             static_r, frame_r, arena_r, cam_r, width, band_h,
             y_offset=y0, full_height=height,
         )
-        clusters = (
-            None
-            if jax.default_backend() != "cpu"
-            else build_light_clusters(cam_r, frame_r["lights"], width, height)
+        clusters = build_light_clusters(
+            cam_r, frame_r["lights"], width, height
         )
         color = shade_deferred(
             gbuf, clusters, frame_r["lights"], cam_r, width, band_h,
-            ibl_data, y_offset=y0, full_height=height,
+            ibl_data, y_offset=y0,
         )
         if ibl_data is not None and "env" in ibl_data:
             from ..ops.ibl import sample_cubemap
@@ -343,6 +340,6 @@ def sharded_render_modes(mesh: Mesh):
             mesh, static, frame, arena, cam, width, height, ibl_data
         ).reshape(height, width, 3)
         img = tone_map(color, lut, exposure, contrast)
-        return img, state
+        return img, {"hdr": color}
 
     return {"pt": pt_mode, "restir": restir_mode, "deferred": deferred_mode}

@@ -3,9 +3,8 @@ evaluation (the deferred/forward raster analog, BASELINE config 1).
 
 The reference rasterises meshlets and shades in forward.frag with
 clustered lights; primary visibility here is produced by ray casting the
-same cluster scene (SURVEY.md §7 "software rasterizer is the wrong
-primitive on TPU"), then shading matches forward.frag's math:
-directional + all point + all spot lights, unshadowed, optional IBL.
+same cluster scene (SURVEY.md §7: no software rasterizer), then
+shading matches forward.frag's math: directional + all point + all spot lights, unshadowed, optional IBL.
 """
 
 from __future__ import annotations
@@ -30,7 +29,7 @@ from ..ops.brdf import eval_brdf_times_nol
 def eval_all_lights(surface: dict, lights: dict) -> jnp.ndarray:
     """Directional + every point/spot light, unshadowed (forward.frag core).
     Reference implementation (O(pixels x lights)); the frame path uses the
-    clustered tile kernel (forward.frag itself is clustered), which is
+    clustered froxel lists (forward.frag itself is clustered), which is
     equal because the radial falloff is zero beyond each light's radius
     and froxel inclusion is conservative (tests/test_frame_graph.py)."""
     color = eval_directional_light(surface, lights)
@@ -76,7 +75,7 @@ def eval_all_lights(surface: dict, lights: dict) -> jnp.ndarray:
     jax.jit,
     static_argnames=(
         "width", "height", "draw_type", "use_transparent", "alpha_rounds",
-        "aniso_taps",
+        "aniso_taps", "return_hdr",
     ),
 )
 def render_forward(
@@ -93,49 +92,35 @@ def render_forward(
     use_transparent: bool = False,
     alpha_rounds: int = 0,
     aniso_taps: int = 1,
+    return_hdr: bool = False,
 ):
-    """One forward frame -> (H, W, 3) display-encoded image."""
-    # pixel-center rays (no jitter for the still-frame golden), traced
-    # in 16x16-block order then scattered back to row-major
-    px_np, py_np, _inv_np = trace.block_pixel_order(width, height)
+    """One forward frame -> (H, W, 3) display-encoded image (and the
+    linear HDR frame when return_hdr)."""
+    # row-major pixel-center rays (no jitter for the still-frame golden)
     uv = jnp.stack(
         [
-            (jnp.asarray(px_np).astype(jnp.float32) + 0.5) / width,
-            (jnp.asarray(py_np).astype(jnp.float32) + 0.5) / height,
+            (jnp.tile(jnp.arange(width, dtype=jnp.float32), height) + 0.5)
+            / width,
+            (jnp.repeat(jnp.arange(height, dtype=jnp.float32), width) + 0.5)
+            / height,
         ],
         axis=-1,
     )
     o, d = pinhole_rays(cam, uv)
 
-    geom = trace.frame_geometry(static_scene, frame)
-    tris = geom["tris"]
+    tracer = trace.make_tracer(static_scene, frame)
+    # opaque pass excludes blend-material clusters (the draw list's
+    # alphaMode filter, draw_list_generator.comp:53-60)
+    opaque = None
     if use_transparent:
-        # opaque pass excludes blend-material clusters (the draw list's
-        # alphaMode filter, draw_list_generator.comp:53-60)
-        from .gbuffer import _masked_aabbs
         from .transparent import blend_cluster_mask
 
-        mn, mx = _masked_aabbs(
-            frame["wc_aabb_min_w"],
-            frame["wc_aabb_max_w"],
-            ~blend_cluster_mask(static_scene),
-        )
-        closest_fn, _ = trace.make_tracer(
-            tris, mn, mx, packed9=geom.get("packed9")
-        )
-    else:
-        closest_fn, _ = trace.make_tracer(
-            tris,
-            frame["wc_aabb_min_w"],
-            frame["wc_aabb_max_w"],
-            bvh=trace.frame_bvh(frame),
-            packed9=geom.get("packed9"),
-        )
+        opaque = ~blend_cluster_mask(static_scene)
+
+    def closest_fn(o_, d_, t_min, t_max):
+        return tracer.closest(o_, d_, t_min, t_max, opaque)
+
     hit = closest_fn(o, d, 1e-4, jnp.inf)
-    inv16 = jnp.asarray(trace.block_inverse16(width, height))
-    hit = {k: trace.permute16(v, inv16) for k, v in hit.items()}
-    o = trace.permute16(o, inv16)
-    d = trace.permute16(d, inv16)
     if alpha_rounds and "mat_i32" in arena:
         # alpha-mask discard (forward.frag:56-58)
         from .gbuffer import mask_discard_retrace
@@ -159,10 +144,10 @@ def render_forward(
 
         dbg = debug_color(DrawType(draw_type), surface, hit, static_scene)
         dbg = jnp.where(surface["valid"][..., None], dbg, 0.0)
-        return jnp.clip(dbg.reshape(height, width, 3), 0.0, 1.0)
+        dbg = jnp.clip(dbg.reshape(height, width, 3), 0.0, 1.0)
+        return (dbg, dbg) if return_hdr else dbg
     # clustered direct lighting (forward.frag's clustered loop): the
-    # tile-major froxel kernel shared with deferred shading (TPU), the
-    # XLA froxel path elsewhere — same per-pixel observable light set
+    # froxel light lists shared with deferred shading
     lights = frame["lights"]
     color = eval_directional_light(surface, lights)
     if int(lights["point_position"].shape[0]) or int(
@@ -174,24 +159,17 @@ def render_forward(
             surface["position_ws"] @ w2c[2, :3] + w2c[2, 3],
             -jnp.inf,
         )
-        if jax.default_backend() != "cpu":
-            from ..ops.shade_tiles import shade_clustered_tiles
+        from ..ops.clustering import (
+            build_light_clusters, eval_clustered_lights,
+        )
 
-            color = color + shade_clustered_tiles(
-                surface, lights, cam, z_cam, surface["valid"], width, height
-            )
-        else:
-            from ..ops.clustering import (
-                build_light_clusters, eval_clustered_lights,
-            )
-
-            clusters = build_light_clusters(cam, lights, width, height)
-            px = jnp.tile(jnp.arange(width, dtype=jnp.int32), height)
-            py = jnp.repeat(jnp.arange(height, dtype=jnp.int32), width)
-            color = color + eval_clustered_lights(
-                surface, lights, clusters, px, py, z_cam,
-                cam["near"], cam["far"],
-            )
+        clusters = build_light_clusters(cam, lights, width, height)
+        px = jnp.tile(jnp.arange(width, dtype=jnp.int32), height)
+        py = jnp.repeat(jnp.arange(height, dtype=jnp.int32), width)
+        color = color + eval_clustered_lights(
+            surface, lights, clusters, px, py, z_cam,
+            cam["near"], cam["far"],
+        )
     color = jnp.where(surface["valid"][..., None], color, 0.0)
     hdr = color.reshape(height, width, 3)
     if use_transparent:
@@ -208,4 +186,4 @@ def render_forward(
             static_scene, frame, arena, cam, hdr, z_cam, width, height
         )
     img = tone_map(hdr, lut, exposure, contrast)
-    return img
+    return (img, hdr) if return_hdr else img

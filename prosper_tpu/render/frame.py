@@ -1,6 +1,6 @@
 """Frame-graph dispatch: mode name -> unified render callable.
 
-The TPU analog of Renderer::render's mode flags
+The analog of Renderer::render's mode flags
 (/root/reference/src/render/Renderer.cpp:367-670, Renderer.hpp:107-117):
 each mode is a jit-compiled functional frame graph
 `f(static, frame, arena, cam, lut, ...) -> (image, state)` where `state`
@@ -31,34 +31,34 @@ def _forward_entry(
 ):
     from ..utils.profiler import profiled_jit_call
 
-    img = profiled_jit_call(
+    img, hdr = profiled_jit_call(
         render_forward,
         static, frame, arena, cam, lut, width, height, exposure, contrast,
         draw_type, use_transparent,
         alpha_rounds=kw.get("alpha_rounds", 0),
         aniso_taps=kw.get("aniso_taps", 1),
+        return_hdr=True,
     )
-    return img, state
+    return img, {"hdr": hdr}
+
+
+def frame_hdr(state):
+    """The linear HDR frame a mode entry left in its `state`: the running
+    mean of pt/restir ((color, count) tuples) or the "hdr" entry of the
+    forward and deferred state dicts."""
+    if isinstance(state, dict):
+        return state["hdr"]
+    return state[0]
 
 
 def render_modes() -> dict:
-    modes = {"forward": _forward_entry}
-    try:
-        from .pt import pt_entry
+    from .deferred import deferred_entry
+    from .pt import pt_entry
+    from .restir import restir_entry
 
-        modes["pt"] = pt_entry
-    except ImportError:
-        pass
-    try:
-        from .deferred import deferred_entry
-
-        modes["deferred"] = deferred_entry
-    except ImportError:
-        pass
-    try:
-        from .restir import restir_entry
-
-        modes["restir"] = restir_entry
-    except ImportError:
-        pass
-    return modes
+    return {
+        "forward": _forward_entry,
+        "pt": pt_entry,
+        "deferred": deferred_entry,
+        "restir": restir_entry,
+    }

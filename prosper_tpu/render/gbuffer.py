@@ -3,7 +3,7 @@
 The reference rasterises meshlets into albedo+roughness / signed-oct
 normal+metalness / velocity / depth targets
 (/root/reference/res/shader/gbuffer.frag, formats RenderTargets.hpp:11-14).
-On TPU primary visibility comes from the same cluster tracer; the
+Here primary visibility comes from the same cluster tracer; the
 G-buffer encodings are kept bit-compatible:
 - albedoRoughness: rgb albedo + a roughness
 - normalMetallic: signed-octahedron normal (xy + z sign) + metalness
@@ -19,7 +19,7 @@ import jax.numpy as jnp
 from ..mathx.packing import pack_velocity, signed_oct_encode
 from ..ops import trace
 from ..ops.rays import pinhole_rays
-from .surface import evaluate_surface
+from .surface import evaluate_surface, hit_material_uv
 
 
 def mask_discard_retrace(arena, static_scene, trace_fn, o, d, hit,
@@ -30,91 +30,25 @@ def mask_discard_retrace(arena, static_scene, trace_fn, o, d, hit,
     Deterministic, unlike PT's stochastic any-hit: a hit on an
     alphaMode==MASK material whose sampled alpha fails the cutoff is
     ignored and the ray re-traced from just past it, up to `rounds`
-    layers. Tile-compacted on mask-material hits so opaque scenes pay one
-    small gather; rays (o, d) and `hit` must be in the same (block)
-    order. Handles both hit forms: the fused kernel's (material/uv
-    packed in the hit rows) and trace_closest's (t, tri, u, v)."""
-    from ..ops.compact import tile_apply
+    layers. Rays that need no re-trace carry t_max = 0, which the tracers
+    reject at once; rays (o, d) and `hit` (t, tri, u, v) must be in the
+    same order."""
     from ..ops.texture import sample_alpha_packed
 
-    def _mat_uv(h):
-        if "material" in h:
-            return h["material"], h["uv"]
-        tri = jnp.maximum(h["tri"], 0)
-        aidx = static_scene["wt_aidx"][tri]
-        ap = static_scene["a_packed"]
-        u = h["u"][..., None]
-        v = h["v"][..., None]
-        uv = (
-            (1.0 - u - v) * ap[aidx[..., 0], 7:9]
-            + u * ap[aidx[..., 1], 7:9]
-            + v * ap[aidx[..., 2], 7:9]
-        )
-        return static_scene["wt_material"][tri], uv
-
-    R = o.shape[0]
-    pad = (-R) % 256
-    if pad:
-        def _p(a):
-            return jnp.concatenate([a, jnp.zeros((pad,) + a.shape[1:], a.dtype)])
-
-        o, d = _p(o), _p(d)
-        hit_in = {k: _p(v) for k, v in hit.items()}
-        hit_in["tri"] = hit_in["tri"].at[R:].set(-1)
-    else:
-        hit_in = hit
-
-    mat0, _ = _mat_uv(hit_in)
-    mat_mode = arena["mat_i32"][mat0, 0]
-    cand = (hit_in["tri"] >= 0) & (mat_mode == 1)
-
-    def _fn(c_in, lane_ok):
-        o_c, d_c, hit_c = c_in
-        hit_c = dict(hit_c)
-        t_off = jnp.zeros_like(hit_c["t"])
-        for _ in range(rounds):
-            mat_c, uv_c = _mat_uv(hit_c)
-            a = sample_alpha_packed(arena, mat_c, uv_c)
-            ignore = lane_ok & (hit_c["tri"] >= 0) & (a == 0.0)
-            adv = jnp.where(ignore, hit_c["t"] * (1.0 + 1e-4) + 1e-5, 0.0)
-            o_c = o_c + d_c * adv[..., None]
-            t_off = t_off + adv
-            hit2 = trace_fn(
-                o_c, d_c, 0.0, jnp.where(ignore, jnp.inf, 0.0)
-            )
-            hit_c = {
-                k: jnp.where(
-                    ignore.reshape(ignore.shape + (1,) * (hit_c[k].ndim - 1)),
-                    hit2[k],
-                    hit_c[k],
-                )
-                for k in hit_c
-            }
-        hit_c["t"] = hit_c["t"] + t_off
-        return hit_c
-
-    out = tile_apply(cand, _fn, (o, d, hit_in))
-    merged = {
-        k: jnp.where(
-            cand.reshape(cand.shape + (1,) * (hit_in[k].ndim - 1)),
-            out[k],
-            hit_in[k],
-        )
-        for k in hit_in
-    }
-    if pad:
-        merged = {k: v[:R] for k, v in merged.items()}
-    return merged
-
-
-def _masked_aabbs(wc_min, wc_max, mask):
-    """Inverted (empty) AABBs for culled clusters: the conservative packet
-    cull then never visits them (the draw-list analog)."""
-    big = jnp.float32(3e38)
-    return (
-        jnp.where(mask[:, None], wc_min, big),
-        jnp.where(mask[:, None], wc_max, -big),
-    )
+    hit = dict(hit)
+    mat, _ = hit_material_uv(static_scene, hit)
+    cand = (hit["tri"] >= 0) & (arena["mat_i32"][mat, 0] == 1)
+    t_off = jnp.zeros_like(hit["t"])
+    for _ in range(rounds):
+        a = sample_alpha_packed(arena, *hit_material_uv(static_scene, hit))
+        ignore = cand & (hit["tri"] >= 0) & (a == 0.0)
+        adv = jnp.where(ignore, hit["t"] * (1.0 + 1e-4) + 1e-5, 0.0)
+        o = o + d * adv[..., None]
+        t_off = t_off + adv
+        hit2 = trace_fn(o, d, 0.0, jnp.where(ignore, jnp.inf, 0.0))
+        hit = {k: jnp.where(ignore, hit2[k], hit[k]) for k in hit}
+    hit["t"] = hit["t"] + t_off
+    return hit
 
 
 def render_gbuffer(
@@ -130,25 +64,17 @@ def render_gbuffer(
     y_offset=0,
     full_height: int | None = None,
     alpha_rounds: int = 0,
-    pixel_order: str = "row",
     aniso_taps: int = 1,
 ):
-    """Trace primary rays and produce the G-buffer pytree (flat R = W*H).
+    """Trace primary rays and produce the G-buffer pytree (flat R = W*H,
+    row-major).
 
     aniso_taps > 1 enables anisotropic material filtering (the
     reference's maxAnisotropy=16 samplers, WorldData.cpp:693-714):
     that many trilinear taps along the uv-space major footprint axis.
 
-    pixel_order="block16" keeps every output in the TRACE order (16x16
-    blocks over a height-padded grid, trace.block_order_padded) instead
-    of permuting to row-major: the 16-channel hit unsort was 24 ms/frame
-    at 1080p, while per-lane work is order-independent. Outputs then have
-    R = width * padded_height rows; pad rows are valid=False. Callers
-    convert what they need with trace.blocks_to_rows (regular transpose).
-    Requires width % 16 == 0 and no culling/band offset.
-
     y_offset/full_height render a horizontal BAND of a taller frame
-    (multi-chip pixel sharding, render/distributed.py): `height` rows
+    (multi-device pixel sharding, render/distributed.py): `height` rows
     starting at absolute row y_offset of a full_height frame, with the
     camera projection unchanged. y_offset may be traced (per-device
     axis_index); culling is not supported per-band.
@@ -161,75 +87,25 @@ def render_gbuffer(
     The fresh HiZ is returned in the G-buffer for preservation.
     """
     full_h = height if full_height is None else full_height
-    blocked = pixel_order == "block16"
-    if blocked:
-        assert width % 16 == 0 and not use_culling and y_offset == 0
-        px_np, py_np, _hp = trace.block_order_padded(width, height)
-    else:
-        px_np, py_np, _inv_np = trace.block_pixel_order(width, height)
+    # row-major pixel-center rays; the TAA jitter rides the camera matrix
+    # like the raster path's jittered projection
     uv = jnp.stack(
         [
-            (jnp.asarray(px_np).astype(jnp.float32) + 0.5) / width,
-            (jnp.asarray(py_np).astype(jnp.float32) + y_offset + 0.5)
+            (jnp.tile(jnp.arange(width, dtype=jnp.float32), height) + 0.5)
+            / width,
+            (
+                jnp.repeat(jnp.arange(height, dtype=jnp.float32), width)
+                + y_offset
+                + 0.5
+            )
             / full_h,
         ],
         axis=-1,
     )
-    # jittered projection: the jitter rides the camera matrix; rays go
-    # through pixel centers shifted by the jitter like the raster path
     jit = cam["current_jitter"]
-    uv_j = uv + jit * jnp.array([0.5, -0.5])  # NDC jitter -> uv units
-    o, d = pinhole_rays(cam, uv_j)
+    o, d = pinhole_rays(cam, uv + jit * jnp.array([0.5, -0.5]))
 
-    import jax
-
-    geom = trace.frame_geometry(static_scene, frame)
-    tris = geom["tris"]
-    use_full = jax.default_backend() != "cpu"
-    bvh = trace.frame_bvh(frame)
-    if use_full:
-        from ..ops.trace_pallas_full import pack_tris_full, trace_closest_full
-
-        packed_full = geom.get("packed_full")
-        if packed_full is None:
-            packed_full = pack_tris_full(static_scene, frame)
-        if bvh is not None:
-            from ..ops.trace_bvh import trace_closest_bvh_full
-
-            def make_closest(mn, mx):
-                from functools import partial
-
-                return partial(trace_closest_bvh_full, packed_full, bvh[0], bvh[1])
-        else:
-            def make_closest(mn, mx):
-                from functools import partial
-
-                return partial(trace_closest_full, packed_full, mn, mx)
-    else:
-        def make_closest(mn, mx):
-            from functools import partial
-
-            return partial(trace.trace_closest, tris, mn, mx)
-
-    def make_culled(mask):
-        """Phase tracer for a cluster visibility mask: in-kernel leaf
-        skip on the BVH path, masked (inverted) AABBs on the others."""
-        from functools import partial
-
-        if use_full and bvh is not None:
-            from ..ops.trace_bvh import trace_closest_bvh_full
-
-            return partial(
-                trace_closest_bvh_full, packed_full, bvh[0], bvh[1],
-                skip_mask=mask,
-            )
-        mn, mx = _masked_aabbs(
-            frame["wc_aabb_min_w"], frame["wc_aabb_max_w"], mask
-        )
-        return make_closest(mn, mx)
-    inv16 = (
-        None if blocked else jnp.asarray(trace.block_inverse16(width, height))
-    )
+    tracer = trace.make_tracer(static_scene, frame)
     stats = {}
     hiz_mips = None
     if use_culling:
@@ -249,7 +125,7 @@ def render_gbuffer(
             height,
             output_second_phase=True,
         )
-        hit = make_culled(cull1["visible"])(o, d, 1e-4, jnp.inf)
+        hit = tracer.closest(o, d, 1e-4, jnp.inf, cull1["visible"])
 
         # fresh HiZ from phase-1 depth
         w2clip = cam["camera_to_clip"] @ cam["world_to_camera"]
@@ -257,7 +133,7 @@ def render_gbuffer(
         ph = jnp.concatenate([pos1, jnp.ones_like(pos1[..., :1])], -1)
         clip = ph @ w2clip.T
         depth1 = jnp.where(hit["tri"] >= 0, clip[..., 2] / clip[..., 3], 0.0)
-        depth_img = trace.permute16(depth1, inv16).reshape(height, width)
+        depth_img = depth1.reshape(height, width)
         hiz_mips = build_hiz(depth_img, width, height)
 
         # phase 2: disoccluded clusters only
@@ -270,150 +146,42 @@ def render_gbuffer(
             center, radius, cam, hiz_mips, width, height
         )
         phase2 = cull1["second_phase"] & ~still_occluded
-        hit2 = make_culled(phase2)(o, d, 1e-4, jnp.inf)
+        hit2 = tracer.closest(o, d, 1e-4, jnp.inf, phase2)
         better = hit2["t"] < hit["t"]
-        hit = {
-            k: jnp.where(
-                better.reshape(better.shape + (1,) * (hit[k].ndim - 1)),
-                hit2[k],
-                hit[k],
-            )
-            for k in hit
-        }
+        hit = {k: jnp.where(better, hit2[k], hit[k]) for k in hit}
         stats = {
             "drawn_meshlets": cull1["drawn_meshlets"] + phase2.sum(),
             "rasterized_triangles": cull1["rasterized_triangles"],
         }
     else:
-        if use_full and bvh is not None:
-            from ..ops.trace_bvh import (
-                pack_pixels_np,
-                primary_cam_vec,
-                primary_tile_mask,
-                tile_px_bounds_np,
-                trace_primary_bvh_full,
-                unpack_hit16,
-            )
-
-            # in-kernel raygen: the TAA-jittered projection folds into
-            # the affine camera uniforms (no per-frame 2M-ray prep)
-            cols_np, rows_np, _r0 = pack_pixels_np(px_np, py_np)
-            cam_vec = primary_cam_vec(
-                cam, width, full_h, pixel_jitter=jit, y_offset=y_offset
-            )
-            # per-ray-tile liveness vs every cluster AABB: dead tiles
-            # skip raygen/descent in-kernel (see pt.py primary trace)
-            tmask = primary_tile_mask(
-                cam_vec,
-                jnp.asarray(tile_px_bounds_np(px_np, py_np)),
-                frame["wc_aabb_min_w"],
-                frame["wc_aabb_max_w"],
-            )
-            h16 = trace_primary_bvh_full(
-                packed_full,
-                bvh[0],
-                bvh[1],
-                jnp.asarray(cols_np),
-                jnp.asarray(rows_np),
-                cam_vec,
-                jnp.zeros((1, 4), jnp.int32),
-                tile_mask=tmask,
-            )[: px_np.shape[0]]
-            if blocked:
-                # stay in trace order: the 16-channel row-major permute
-                # was the deferred frame's single most expensive op
-                hit = unpack_hit16(h16)
-            else:
-                # packed hit rows: ONE (R, 16) inverse-permutation gather
-                # to row-major instead of seven per-field gathers
-                hit = unpack_hit16(trace.permute16(h16, inv16))
-        else:
-            hit = make_closest(
-                frame["wc_aabb_min_w"], frame["wc_aabb_max_w"]
-            )(o, d, 1e-4, jnp.inf)
-            if not blocked:
-                hit = {k: trace.permute16(v, inv16) for k, v in hit.items()}
-    if use_culling:
-        hit = {k: trace.permute16(v, inv16) for k, v in hit.items()}
-    if not blocked:
-        # rays in row-major order: recomputed elementwise (cheaper than
-        # two 2M-row permutation gathers of the block-order rays)
-        uv_rm = jnp.stack(
-            [
-                (jnp.tile(jnp.arange(width, dtype=jnp.float32), height) + 0.5)
-                / width,
-                (
-                    jnp.repeat(jnp.arange(height, dtype=jnp.float32), width)
-                    + y_offset
-                    + 0.5
-                )
-                / full_h,
-            ],
-            axis=-1,
-        )
-        o, d = pinhole_rays(cam, uv_rm + jit * jnp.array([0.5, -0.5]))
+        hit = tracer.closest(o, d, 1e-4, jnp.inf)
     if alpha_rounds and "mat_i32" in arena:
         # alpha-mask discard (gbuffer.frag:61-63): failed-mask hits are
         # re-traced past the cut-out instead of shading opaque
-        if use_full and bvh is not None:
-            retrace_fn = make_closest(None, None)
-        else:
-            retrace_fn = make_closest(
-                frame["wc_aabb_min_w"], frame["wc_aabb_max_w"]
-            )
         hit = mask_discard_retrace(
-            arena, static_scene, retrace_fn, o, d, hit, alpha_rounds
+            arena, static_scene, tracer.closest, o, d, hit, alpha_rounds
         )
     # ray-cone mip selection: the raster path's derivative LOD analog,
     # lodBias -1 under TAA (Renderer.cpp:709-715)
     from .surface import pixel_cone_alpha
 
     cone = {
-        "alpha": pixel_cone_alpha(cam, height),
+        "alpha": pixel_cone_alpha(cam, full_h),
         "bias": lod_bias,
         "aniso_taps": aniso_taps,
     }
 
-    # surface eval (incl. the trilinear material taps, the deferred
-    # frame's #1 texture cost) runs only on 256-lane tiles containing a
-    # hit: on sparse views this skips ~(1-coverage) of the arena gathers
-    from ..ops.compact import tile_apply
-
     valid = hit["tri"] >= 0
-    if blocked:
-        # rays in the pad rows (py >= height) never shade
-        valid = valid & (jnp.asarray(py_np) < jnp.uint32(height))
-    pad = (-o.shape[0]) % 256
-
-    def _pad(a):
-        return (
-            jnp.concatenate([a, jnp.zeros((pad,) + a.shape[1:], a.dtype)])
-            if pad
-            else a
-        )
-
-    def _eval(c_in, lane_ok):
-        o_c, d_c, hit_c = c_in
-        if use_full:
-            from .surface import evaluate_surface_from_attrs
-
-            s = evaluate_surface_from_attrs(
-                arena, o_c, d_c, hit_c, cone=cone,
-                tris_packed=packed_full,
-            )
-        else:
-            s = evaluate_surface(
-                static_scene, frame, arena, o_c, d_c, hit_c, cone=cone
-            )
-        s.pop("valid")
-        s.pop("instance", None)
-        return s
-
-    surface = tile_apply(
-        _pad(valid), _eval, (_pad(o), _pad(d), {k: _pad(v) for k, v in hit.items()})
+    surface = evaluate_surface(
+        static_scene, frame, arena, o, d, hit, cone=cone
     )
-    if pad:
-        surface = {k: v[:-pad] for k, v in surface.items()}
+    surface.pop("instance", None)
+    # zero every field of a miss pixel (its hit row is not a surface)
+    surface = {
+        k: jnp.where(valid.reshape(valid.shape + (1,) * (v.ndim - 1)), v, 0)
+        .astype(v.dtype)
+        for k, v in surface.items()
+    }
     surface["valid"] = valid
     # safe default normal on misses (signed-oct encode of 0 would be NaN)
     surface["normal_ws"] = jnp.where(
@@ -465,6 +233,4 @@ def render_gbuffer(
         "hiz": hiz_mips,
         "draw_stats": stats,
     }
-    # (block16 mode: caller requested the order, so it knows the layout;
-    # a string in the pytree would break jit returns)
     return gbuf

@@ -4,7 +4,7 @@ Parity:
 - TextureReadback (src/render/TextureReadback.*, texture_readback.comp):
   one uv sample of a pooled image copied to a host-visible buffer and
   polled ~2 frames later (depth picking for DoF autofocus,
-  App.cpp:583-631). On TPU this is an async device->host copy of one
+  App.cpp:583-631). Here this is an async device->host copy of one
   value; `poll` resolves it without stalling the frame that issued it.
 - draw-stats readback (Renderer.cpp:371-401,851-890): drawn meshlets /
   rasterized triangles as device scalars fetched a frame later.

@@ -33,8 +33,8 @@ def pixel_cone_alpha(cam: dict, height: int):
 def cone_lod(hit: dict, ray_d, n_ws, cone: dict):
     """Ray-cone texture LOD (the raster path's derivative mip analog):
     footprint = t * pixel spread / |cos theta|; per-triangle uv density
-    rides in hit["tri_lod"] (0.5*log2(uv_area/world_area), packed by
-    pack_tris_full). cone = {"alpha": pixel spread, "bias": lodBias
+    rides in hit["tri_lod"] (0.5*log2(uv_area/world_area), from the
+    gathered triangle, see evaluate_surface). cone = {"alpha": pixel spread, "bias": lodBias
     (-1 under TAA, Renderer.cpp:709-715)}."""
     cosd = jnp.abs(jnp.sum(ray_d * n_ws, axis=-1))
     t_hit = jnp.where(jnp.isfinite(hit["t"]), hit["t"], 0.0)
@@ -42,111 +42,21 @@ def cone_lod(hit: dict, ray_d, n_ws, cone: dict):
     return hit["tri_lod"] + jnp.log2(width) + cone.get("bias", 0.0)
 
 
-def _aniso_footprint(cone, ray_d, n_ws, t_hit, e1w, e2w, uve1, uve2):
-    """Anisotropic ray-cone footprint (maxAnisotropy=16 sampler parity):
-    minor axis = cone width, major = width / cos(theta) along the
-    in-plane view direction (ratio clamped to 16); the world major axis
-    maps to uv through the triangle's edge Gram solve. Returns
-    (duv_major (R, 2), log2(width_minor))."""
-    cosd = jnp.abs(jnp.sum(ray_d * n_ws, axis=-1))
-    t_safe = jnp.where(jnp.isfinite(t_hit), t_hit, 0.0)
-    w_minor = jnp.maximum(t_safe, 1e-6) * cone["alpha"]
-    ratio = jnp.clip(1.0 / jnp.maximum(cosd, 1e-3), 1.0, 16.0)
-    mdir = ray_d - n_ws * jnp.sum(ray_d * n_ws, axis=-1)[..., None]
-    mdir = mdir / jnp.maximum(
-        jnp.linalg.norm(mdir, axis=-1, keepdims=True), 1e-9
+def hit_material_uv(static_scene: dict, hit: dict):
+    """(material (R,), uv (R, 2)) at closest hits: the post-trace
+    attribute gather the alpha tests need (stochastic any-hit in PT,
+    mask discard in the raster-analog passes)."""
+    tri = jnp.maximum(hit["tri"], 0)
+    aidx = static_scene["wt_aidx"][tri]
+    ap = static_scene["a_packed"]
+    u = hit["u"][..., None]
+    v = hit["v"][..., None]
+    uv = (
+        (1.0 - u - v) * ap[aidx[..., 0], 7:9]
+        + u * ap[aidx[..., 1], 7:9]
+        + v * ap[aidx[..., 2], 7:9]
     )
-    vec = mdir * (w_minor * ratio)[..., None]
-    g11 = jnp.sum(e1w * e1w, axis=-1)
-    g12 = jnp.sum(e1w * e2w, axis=-1)
-    g22 = jnp.sum(e2w * e2w, axis=-1)
-    det = jnp.maximum(g11 * g22 - g12 * g12, 1e-20)
-    b1 = jnp.sum(e1w * vec, axis=-1)
-    b2 = jnp.sum(e2w * vec, axis=-1)
-    x = (g22 * b1 - g12 * b2) / det
-    y = (g11 * b2 - g12 * b1) / det
-    duv_major = x[..., None] * uve1 + y[..., None] * uve2
-    return duv_major, jnp.log2(jnp.maximum(w_minor, 1e-8))
-
-
-def evaluate_surface_from_attrs(
-    arena: dict,
-    ray_o: jnp.ndarray,
-    ray_d: jnp.ndarray,
-    hit: dict,
-    cone: dict | None = None,
-    tris_packed: jnp.ndarray | None = None,
-    fixed_mip: int | None = None,
-):
-    """VisibleSurface from the fused hit kernel's interpolated attributes
-    (ops/trace_pallas_full.py): zero vertex/instance gathers — only the
-    material row + texture quad fetches remain. cone enables ray-cone
-    mip selection (see cone_lod); cone["aniso_taps"] > 1 with
-    `tris_packed` (the 40-row arena) additionally gathers the winning
-    triangle's world/uv edges (rows 3:9, 30:36) for the anisotropic
-    footprint — one (R, 12) row gather, so the fused trace kernel keeps
-    its zero-gather hit path."""
-    from ..ops.texture import sample_material_packed
-
-    n_ws = _normalize(hit["normal"])
-    t_ws = _normalize(hit["tangent"][..., :3])
-    t_sign = hit["tangent"][..., 3]
-    uv = hit["uv"]
-    material = hit["material"]
-    position = ray_o + hit["t"][..., None] * ray_d
-
-    lod = None
-    duv_major = None
-    aniso_taps = int((cone or {}).get("aniso_taps", 1))
-    if (
-        aniso_taps > 1
-        and cone is not None
-        and tris_packed is not None
-        and "tri_lod" in hit
-    ):
-        C, rows = tris_packed.shape[0], tris_packed.shape[1]
-        tri = jnp.maximum(hit["tri"], 0)
-        base = (tri // 128) * rows * 128 + tri % 128
-        flat = tris_packed.reshape(C * rows * 128)
-        gather_rows = jnp.asarray(
-            [3, 4, 5, 6, 7, 8, 30, 31, 32, 33, 34, 35], tri.dtype
-        )
-        a = flat[base[:, None] + gather_rows[None, :] * 128].astype(
-            jnp.float32
-        )
-        e1w, e2w = a[:, 0:3], a[:, 3:6]
-        uv0, uv1, uv2 = a[:, 6:8], a[:, 8:10], a[:, 10:12]
-        duv_major, lod_minor = _aniso_footprint(
-            cone, ray_d, n_ws, hit["t"], e1w, e2w, uv1 - uv0, uv2 - uv0
-        )
-        lod = hit["tri_lod"] + lod_minor + cone.get("bias", 0.0)
-    elif cone is not None and "tri_lod" in hit:
-        lod = cone_lod(hit, ray_d, n_ws, cone)
-    mat = sample_material_packed(
-        arena, material, uv, lod,
-        duv_major=duv_major, aniso_taps=aniso_taps if lod is not None else 1,
-        fixed_mip=fixed_mip,
-    )
-    has_map = (mat["normal_ts"][..., 0] != -2.0) & (t_sign != 0.0)
-    n_mapped = mapped_normal(mat["normal_ts"], n_ws, t_ws, t_sign)
-    normal_ws = jnp.where(has_map[..., None], n_mapped, n_ws)
-
-    inv_view = -ray_d
-    NoV = jnp.clip(jnp.sum(normal_ws * inv_view, axis=-1), 0.0, 1.0)
-    return {
-        "valid": hit["tri"] >= 0,
-        "position_ws": position,
-        "normal_ws": normal_ws,
-        "uv": uv,
-        "albedo": mat["albedo"],
-        "alpha": mat["alpha"],
-        "roughness": mat["roughness"],
-        "metallic": mat["metallic"],
-        "material": material,
-        "inv_view_ray": inv_view,
-        "NoV": NoV,
-        "linear_depth": hit["t"],
-    }
+    return static_scene["wt_material"][tri], uv
 
 
 def evaluate_surface(
@@ -202,8 +112,7 @@ def evaluate_surface(
     duv_major = None
     aniso_taps = int((cone or {}).get("aniso_taps", 1))
     if cone is not None and lod is None:
-        # ray-cone LOD from gathered geometry (the fused-kernel path
-        # packs tri_lod instead; see cone_lod)
+        # ray-cone LOD from the gathered triangle (see cone_lod)
         p0 = static_scene["wt_p0"][tri]
         p1 = static_scene["wt_p1"][tri]
         p2 = static_scene["wt_p2"][tri]

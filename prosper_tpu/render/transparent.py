@@ -3,9 +3,9 @@
 Analog of ForwardRenderer::recordTransparent in the reference frame graph
 (/root/reference/src/render/Renderer.cpp:494-500,
 src/render/ForwardRenderer.cpp): blend-mode meshes draw after opaque
-shading + skybox with alpha blending and NO sorting. The TPU redesign
-traces the same primary rays against only the blend-material clusters
-(masked-AABB cull, the draw-list alphaMode filter of
+shading + skybox with alpha blending and NO sorting. Here the same
+primary rays are traced against only the blend-material clusters
+(a per-cluster trace mask, the draw-list alphaMode filter of
 draw_list_generator.comp:53-60) and alpha-blends the nearest transparent
 surface over the opaque result — a single unsorted layer, matching the
 reference's unsorted meshlet raster in the common case.
@@ -16,7 +16,6 @@ enabled) via the same BRDF as the opaque path.
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 
 from ..ops import trace
@@ -42,9 +41,6 @@ def transparent_pass(
     ibl_data: dict | None = None,
 ) -> jnp.ndarray:
     """Alpha-blend the nearest blend-material surface over `hdr`."""
-    from .gbuffer import _masked_aabbs
-
-    R = width * height
     px = jnp.tile(jnp.arange(width, dtype=jnp.int32), height)
     py = jnp.repeat(jnp.arange(height, dtype=jnp.int32), width)
     uv = (jnp.stack([px, py], -1).astype(jnp.float32) + 0.5) / jnp.array(
@@ -53,73 +49,19 @@ def transparent_pass(
     jit = cam["current_jitter"]
     o, d = pinhole_rays(cam, uv + jit * jnp.array([0.5, -0.5]))
 
-    mask = blend_cluster_mask(static_scene)
-    mn, mx = _masked_aabbs(
-        frame["wc_aabb_min_w"], frame["wc_aabb_max_w"], mask
-    )
-    geom = trace.frame_geometry(static_scene, frame)
-    tris = geom["tris"]
-    use_full = jax.default_backend() != "cpu"
-    bvh = trace.frame_bvh(frame)
-    from .surface import pixel_cone_alpha
+    from .surface import evaluate_surface, pixel_cone_alpha
 
     cone = {"alpha": pixel_cone_alpha(cam, height), "bias": 0.0}
-    if use_full:
-        from ..ops.trace_pallas_full import pack_tris_full, trace_closest_full
+    # trace against the blend clusters only (the draw list's alphaMode
+    # filter)
+    tracer = trace.make_tracer(static_scene, frame)
+    hit = tracer.closest(
+        o, d, 1e-4, jnp.inf, blend_cluster_mask(static_scene)
+    )
 
-        packed_full = geom.get("packed_full")
-        if packed_full is None:
-            packed_full = pack_tris_full(static_scene, frame)
-        if bvh is not None:
-            # BVH descent with the blend clusters as the in-kernel skip
-            # mask: non-blend subtrees are never visited. The old flat
-            # cull-list kernel here traced all 2M rays against the
-            # masked-AABB list and cost 567 ms of the 1080p frame — the
-            # very first thing the round-5 per-pass profiler caught.
-            from ..ops.trace_bvh import trace_closest_bvh_full
-
-            hit = trace_closest_bvh_full(
-                packed_full, bvh[0], bvh[1], o, d, 1e-4, jnp.inf,
-                skip_mask=mask,
-            )
-        else:
-            hit = trace_closest_full(packed_full, mn, mx, o, d, 1e-4, jnp.inf)
-        from .surface import evaluate_surface_from_attrs
-
-        # surface eval (incl. trilinear arena taps) only on 256-ray
-        # tiles containing a blend hit — blend geometry covers a small
-        # screen fraction in the common case
-        from ..ops.compact import tile_apply
-
-        hit_lane = hit["tri"] >= 0
-        pad = (-R) % 256
-
-        def _pad(a):
-            return (
-                jnp.concatenate([a, jnp.zeros((pad,) + a.shape[1:], a.dtype)])
-                if pad
-                else a
-            )
-
-        def _eval(c_in, lane_ok):
-            o_c, d_c, hit_c = c_in
-            s = evaluate_surface_from_attrs(arena, o_c, d_c, hit_c, cone=cone)
-            s.pop("valid")
-            return s
-
-        surface = tile_apply(
-            _pad(hit_lane), _eval,
-            (_pad(o), _pad(d), {k: _pad(v) for k, v in hit.items()}),
-        )
-        if pad:
-            surface = {k: v[:-pad] for k, v in surface.items()}
-    else:
-        hit = trace.trace_closest(tris, mn, mx, o, d, 1e-4, jnp.inf)
-        from .surface import evaluate_surface
-
-        surface = evaluate_surface(
-            static_scene, frame, arena, o, d, hit, cone=cone
-        )
+    surface = evaluate_surface(
+        static_scene, frame, arena, o, d, hit, cone=cone
+    )
 
     w2c = cam["world_to_camera"]
     z_cam_t = surface["position_ws"] @ w2c[2, :3] + w2c[2, 3]
@@ -127,19 +69,12 @@ def transparent_pass(
 
     lights = frame["lights"]
     color = eval_directional_light(surface, lights)
-    if jax.default_backend() != "cpu":
-        from ..ops.shade_tiles import shade_clustered_tiles
+    from ..ops.clustering import build_light_clusters, eval_clustered_lights
 
-        color = color + shade_clustered_tiles(
-            surface, lights, cam, z_cam_t, valid, width, height
-        )
-    else:
-        from ..ops.clustering import build_light_clusters, eval_clustered_lights
-
-        clusters = build_light_clusters(cam, lights, width, height)
-        color = color + eval_clustered_lights(
-            surface, lights, clusters, px, py, z_cam_t, cam["near"], cam["far"]
-        )
+    clusters = build_light_clusters(cam, lights, width, height)
+    color = color + eval_clustered_lights(
+        surface, lights, clusters, px, py, z_cam_t, cam["near"], cam["far"]
+    )
     if ibl_data is not None:
         from ..ops.ibl import eval_ibl
 

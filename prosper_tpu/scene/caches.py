@@ -4,7 +4,7 @@ The reference keeps three versioned caches (SURVEY.md §5
 checkpoint/resume): SPIR-V shader cache keyed by source hash
 (Device.cpp:1715-1806), mesh cache v4 with optimized+meshletized blobs
 (DeferredLoadingContext.cpp:492-660), and BC7 texture cache v5 with
-mtime tags (Texture.cpp:78-165). TPU equivalents:
+mtime tags (Texture.cpp:78-165). Equivalents here:
 - compile cache: JAX persistent compilation cache (enable_compile_cache)
 - mesh cache: clustered+packed MeshData blobs in npz, keyed by
   (source path, primitive, mtime, version); version mismatch or stale
@@ -25,10 +25,13 @@ MESH_CACHE_VERSION = 4  # v4: binned-SAH triangle clustering (was Morton)
 TEXTURE_CACHE_VERSION = 1
 
 
+_CHECKOUT = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", ".."))
+
+
 def cache_dir(scene_path: str) -> str:
     """`prosper_cache/` next to the scene like the reference; falls back
-    to ~/.cache when the scene directory is read-only (e.g. the mounted
-    reference assets)."""
+    to generated/prosper_cache/ in the checkout when the scene directory
+    is read-only."""
     d = os.path.join(os.path.dirname(os.path.abspath(scene_path)), "prosper_cache")
     try:
         os.makedirs(d, exist_ok=True)
@@ -38,23 +41,30 @@ def cache_dir(scene_path: str) -> str:
         os.remove(probe)
         return d
     except OSError:
-        d = os.path.join(
-            os.path.expanduser("~"), ".cache", "prosper_tpu", "prosper_cache"
-        )
+        d = os.path.join(_CHECKOUT, "generated", "prosper_cache")
         os.makedirs(d, exist_ok=True)
         return d
 
 
-def enable_compile_cache(directory: str | None = None) -> None:
-    """XLA persistent compilation cache = the shader-cache analog."""
+def compile_cache_dir() -> str:
+    """Where XLA's persistent compilation cache lives: the directory
+    JAX_COMPILATION_CACHE_DIR names when it is set, else the fixed
+    `<checkout>/.jax_cache` (a fixed path, so entries are found again)."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or os.path.join(
+        _CHECKOUT, ".jax_cache"
+    )
+
+
+def enable_compile_cache() -> str:
+    """XLA persistent compilation cache = the shader-cache analog.
+    Returns the directory in use."""
     import jax
 
-    directory = directory or os.path.join(
-        os.path.expanduser("~"), ".cache", "prosper_tpu_xla"
-    )
+    directory = compile_cache_dir()
     os.makedirs(directory, exist_ok=True)
     jax.config.update("jax_compilation_cache_dir", directory)
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    return directory
 
 
 def _key(*parts) -> str:

@@ -6,7 +6,7 @@ previous-frame matrices kept for velocity, world-space frustum planes, and
 physical lens parameters {fov, zN/zF, apertureDiameter, focusDistance,
 focalLength} (Camera.hpp:40-48, focalLength derived Camera.cpp:150-152).
 
-The per-frame `CameraUniforms` dict is the TPU analog of the reference's
+The per-frame `CameraUniforms` dict is the analog of the reference's
 constants-ring camera UBO (shader_structs/scene/camera.h:12-34).
 """
 

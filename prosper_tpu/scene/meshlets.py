@@ -1,18 +1,18 @@
-"""Meshlet/cluster building: the TPU analog of the reference's meshoptimizer
+"""Meshlet/cluster building: the analog of the reference's meshoptimizer
 pipeline (DeferredLoadingContext.cpp:340-440: optimize -> meshlets 64v/124t,
 cone_weight 0.5; limits /root/reference/src/utils/Utils.hpp:18-19).
 
-Design note (TPU-first): clusters serve double duty here.
+Design note: clusters serve double duty here.
 1. They are the culling granularity for the meshlet draw-list pipeline
    (frustum/cone/HiZ tests over flat cluster arrays, SURVEY.md §7).
 2. They are the BVH leaf granularity for ray traversal: a leaf visit
-   intersects the whole 128-padded triangle tile against a ray packet with
-   dense VPU math — irregular per-triangle gathers become regular tiles.
+   intersects the cluster's padded 128-triangle slab (the plain tracer's
+   dense packet x slab block, the CUDA tracer's per-ray leaf loop).
 
 Instead of meshoptimizer's vertex-cache optimisation (a HW-rasteriser
 concern), we order triangles along a Morton curve of their centroids so
 clusters are spatially tight, which is what both culling and BVH quality
-actually need on TPU.
+actually need.
 """
 
 from __future__ import annotations

@@ -8,7 +8,7 @@ main thread polls once per frame and adopts finished assets
 arrays; unloaded meshes are skipped by the culler via meshletCount==0
 (draw_list_generator.comp:38-41).
 
-TPU mapping (SURVEY.md §7 stage 8): the worker thread does the CPU-side
+Mapping (SURVEY.md §7 stage 8): the worker thread does the CPU-side
 decode/cluster/mip work and hands numpy blobs over a queue; `poll`
 adopts up to a budget per frame (<=10 like the BLAS pacing) and streams
 the touched arena ranges to HBM with async device_put. Un-adopted

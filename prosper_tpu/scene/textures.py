@@ -1,9 +1,9 @@
-"""World texture storage: the TPU "bindless" emulation.
+"""World texture storage: the "bindless" emulation.
 
 The reference binds a variable-count descriptor array of BC7 textures
 (WorldData.cpp:1758-1776) sampled by packed Texture2DSampler handles.
-TPUs have no samplers or descriptor arrays, and BC7 is not sampleable —
-so (SURVEY.md §7 hard part 4) all texture mips live in ONE flat uint32
+A jit has no samplers or descriptor arrays, and BC7 is not sampleable
+there — so (SURVEY.md §7 hard part 4) all texture mips live in ONE flat uint32
 arena (RGBA8 packed per texel) addressed through a (texture, mip) offset
 table; sampling is a gather + in-kernel sRGB decode + bilinear filter
 (ops/texture.py). Slot 0 is the neutral 1px default texture, matching the
@@ -17,12 +17,16 @@ architecture kept, codec swapped).
 
 from __future__ import annotations
 
-import io
 from dataclasses import dataclass
 
 import numpy as np
 
-from ..io.image import load_image_rgba8
+from ..io.image import (
+    decode_image_bytes,
+    image_bytes_size,
+    load_image_rgba8,
+    resize_area,
+)
 from .gltf import GltfDocument
 
 MAX_MIPS = 13  # up to 4096^2
@@ -125,23 +129,15 @@ def decode_image(doc: GltfDocument, index: int, max_dim: int | None,
         else:
             img = neutral_rgba
     elif img_spec.data is not None:
-        from PIL import Image
-
-        with Image.open(io.BytesIO(img_spec.data)) as im:
-            img = np.asarray(im.convert("RGBA"), np.uint8)
+        img = decode_image_bytes(img_spec.data, f"image {index}")
     else:
         img = neutral_rgba
     if img is None:
         img = np.full((1, 1, 4), 255, np.uint8)
     if max_dim is not None and max(img.shape[:2]) > max_dim:
-        from PIL import Image
-
         h, w = img.shape[:2]
         scale = max_dim / max(h, w)
-        im = Image.fromarray(img).resize(
-            (max(int(w * scale), 1), max(int(h * scale), 1)), Image.LANCZOS
-        )
-        img = np.asarray(im, np.uint8)
+        img = resize_area(img, max(int(h * scale), 1), max(int(w * scale), 1))
     return img
 
 
@@ -239,26 +235,20 @@ def build_texture_arena(
 
 def image_dims(doc: GltfDocument, index: int, max_dim: int | None):
     """(h, w) an image will decode to, WITHOUT decoding pixel data
-    (PIL header read), replicating decode_image's max_dim rescale.
-    Missing files fall back to the 1px neutral."""
+    (header read), replicating decode_image's max_dim rescale. Missing
+    files fall back to the 1px neutral."""
     import os
 
-    from PIL import Image
-
     img_spec = doc.images[index]
-    try:
-        if img_spec.uri is not None:
-            path = os.path.join(doc.base_dir, img_spec.uri)
-            if not os.path.exists(path):
-                return 1, 1
-            with Image.open(path) as im:
-                w, h = im.size
-        elif img_spec.data is not None:
-            with Image.open(io.BytesIO(img_spec.data)) as im:
-                w, h = im.size
-        else:
+    if img_spec.uri is not None:
+        path = os.path.join(doc.base_dir, img_spec.uri)
+        if not os.path.exists(path):
             return 1, 1
-    except Exception:
+        with open(path, "rb") as f:
+            h, w = image_bytes_size(f.read(), path)
+    elif img_spec.data is not None:
+        h, w = image_bytes_size(img_spec.data, f"image {index}")
+    else:
         return 1, 1
     if max_dim is not None and max(w, h) > max_dim:
         scale = max_dim / max(h, w)

@@ -1,9 +1,9 @@
-"""World: glTF scene -> flat TPU-resident scene arrays + per-frame updates.
+"""World: glTF scene -> flat device-resident scene arrays + per-frame updates.
 
 The reference's World/WorldData own all GPU scene data and drive per-frame
 updates (updateAnimations -> updateScene -> updateBuffers ->
 buildAccelerationStructures; /root/reference/src/scene/World.cpp:349-575).
-This module is the TPU-native equivalent:
+This module is the equivalent here:
 
 - Geometry is flattened per DrawInstance into padded 128-triangle cluster
   tiles (the meshlet analog) in one arena; object-space positions are
@@ -32,7 +32,6 @@ from ..accel.bvh import (
     Bvh,
     build_bvh,
     pack_nodes,
-    pack_nodes8,
     transform_aabbs,
 )
 from ..utils.logger import log_info
@@ -117,12 +116,23 @@ class MaterialTable:
         }
 
 
+def _slot_aabb(p0, p1, p2, base: int, cnt: int):
+    """AABB of a cluster's traced triangles (slots base..base+cnt): the
+    box the tracers cull with must contain exactly what they intersect
+    (the meshlet builder's bounds come from pre-quantization positions).
+    A cluster still streaming in (cnt == 0) gets the empty box at 0."""
+    if cnt == 0:
+        return np.zeros(3, np.float32), np.zeros(3, np.float32)
+    pts = np.concatenate(
+        [p0[base : base + cnt], p1[base : base + cnt], p2[base : base + cnt]]
+    )
+    return pts.min(axis=0), pts.max(axis=0)
+
+
 def _build_materials(doc: GltfDocument) -> MaterialTable:
     n = len(doc.materials) + 1
-    # material ids ride the f16 trace-slab arena (trace_pallas_full
-    # TRIS_DTYPE) where integers are exact only up to 2048; the
-    # reference caps materials well below this too
-    assert n <= 2048, f"{n} materials exceed the f16 arena id range"
+    # the reference caps materials well below this
+    assert n <= 2048, f"{n} materials exceed the material table cap"
     mt = MaterialTable(
         base_color_factor=np.ones((n, 4), np.float32),
         metallic_factor=np.ones(n, np.float32),
@@ -365,8 +375,8 @@ class World:
         self.a_tangent = np.concatenate([m.tangents for m in self.meshes])
         self.a_uv = np.concatenate([m.uv0 for m in self.meshes])
         self.a_position = np.concatenate([m.positions for m in self.meshes])
-        # interleaved attribute rows: ONE row gather per vertex fetch on
-        # TPU instead of three (normal3 | tangent4 | uv2 | pad3)
+        # interleaved attribute rows: ONE row gather per vertex fetch
+        # instead of three (normal3 | tangent4 | uv2 | pad3)
         va = len(self.a_normal)
         self.a_packed = np.zeros((va, 12), np.float32)
         self.a_packed[:, 0:3] = self.a_normal
@@ -514,8 +524,9 @@ class World:
                 wc_mesh[c_global] = mesh_idx
                 wc_material[c_global] = mesh.material
                 wc_local[c_global] = local_c
-                wc_aabb_min[c_global] = cl.aabb_min[local_c]
-                wc_aabb_max[c_global] = cl.aabb_max[local_c]
+                wc_aabb_min[c_global], wc_aabb_max[c_global] = _slot_aabb(
+                    wt_p0, wt_p1, wt_p2, base, cnt
+                )
                 wc_sphere_center[c_global] = cl.cone_apex[local_c]
                 wc_sphere_radius[c_global] = cl.sphere_radius[local_c]
                 wc_cone_axis[c_global] = cl.cone_axis[local_c]
@@ -593,10 +604,16 @@ class World:
             wmin[sel], wmax[sel] = transform_aabbs(
                 self.wc_aabb_min_obj[sel], self.wc_aabb_max_obj[sel], m2w[inst]
             )
+        # widen by a few float32 ulps: the device transforms the triangles
+        # with its own rounding, and a per-ray traversal must never cull a
+        # triangle whose vertex lands just outside its box
+        eps = 4 * np.finfo(np.float32).eps * np.maximum(
+            np.abs(wmin), np.abs(wmax)
+        ).max(axis=1, keepdims=True)
+        wmin, wmax = wmin - eps, wmax + eps
         bvh: Bvh = build_bvh(wmin, wmax, max_leaf_size=1)
         bvh_bounds, bvh_meta = pack_nodes(bvh)
-        bvh_nodes8 = pack_nodes8(bvh)
-        from ..ops.trace_bvh import STACK_CAP
+        from ..ops.trace_cuda import STACK_CAP
 
         assert bvh.depth + 2 <= STACK_CAP, "scene exceeds BVH stack depth"
 
@@ -621,7 +638,6 @@ class World:
             "normal_transforms": normal_ms,  # (I, 3, 3)
             "bvh_bounds": bvh_bounds,  # (N, 6) kernel node bounds
             "bvh_meta": bvh_meta,  # (N, 3) left | right | leaf cluster
-            "bvh_nodes8": bvh_nodes8,  # (N8, 8, 8) 8-wide node table
             "bvh_depth": bvh.depth,
             "lights": light_uniforms(la),
             "scene_camera": st.camera,
@@ -707,8 +723,10 @@ class World:
                     self.wt_p2[base : base + cnt] = mesh.positions[tris[:, 2]]
                     self.wt_aidx[base : base + cnt] = tris + np.uint32(voff)
                     cg = c_base + local_c
-                    self.wc_aabb_min_obj[cg] = cl.aabb_min[local_c]
-                    self.wc_aabb_max_obj[cg] = cl.aabb_max[local_c]
+                    self.wc_aabb_min_obj[cg], self.wc_aabb_max_obj[cg] = (
+                        _slot_aabb(self.wt_p0, self.wt_p1, self.wt_p2, base,
+                                   cnt)
+                    )
                     self.wc_sphere_center[cg] = cl.cone_apex[local_c]
                     self.wc_sphere_radius[cg] = cl.sphere_radius[local_c]
                     self.wc_cone_axis[cg] = cl.cone_axis[local_c]

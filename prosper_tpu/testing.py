@@ -1,7 +1,11 @@
-"""Procedural test scenes: tiny self-contained scene pytrees for unit
-tests, the graft entry, and sharding dry-runs (no glTF file needed)."""
+"""Procedural scenes: tiny self-contained scene pytrees for unit tests,
+the graft entry and sharding dry-runs (no glTF file needed), and the
+seeded glTF scene the CLI, the bench and the golden tests load through
+the normal World path."""
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -204,3 +208,427 @@ def make_stress_scene(n_clusters: int = 2048, seed: int = 0):
     bvh = build_bvh(wc_min, wc_max, max_leaf_size=1)
     bounds, meta = pack_nodes(bvh)
     return tris, wc_min, wc_max, bounds, meta
+
+
+# ---------------------------------------------------------------------------
+# Seeded glTF scene: the repository's own FlightHelmet-class asset
+# ---------------------------------------------------------------------------
+
+SCENE_GENERATOR = "prosper_tpu.testing seeded scene v2"
+_REPO_ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+GENERATED_DIR = os.path.join(_REPO_ROOT, "generated")
+
+# size -> (segment scale of every mesh, texture edge in texels). "full"
+# matches the FlightHelmet bench scene: >= 94,722 triangles in >= 766
+# clusters, 2048^2 material textures.
+SCENE_SIZES = {"full": (1.0, 2048), "small": (0.125, 64)}
+
+
+def _grid_indices(nu: int, nv: int) -> np.ndarray:
+    """Two triangles per cell of an (nv+1) x (nu+1) vertex grid."""
+    i = np.arange(nv)[:, None] * (nu + 1) + np.arange(nu)[None, :]
+    a, b, c, d = i, i + 1, i + nu + 1, i + nu + 2
+    return np.stack([a, c, b, b, c, d], axis=-1).reshape(-1, 3)
+
+
+def _param_surface(fn, nu: int, nv: int, u_range, v_range):
+    """Sample fn(u, v) -> (positions, normals) on a grid; uv in [0,1]^2."""
+    u = np.linspace(u_range[0], u_range[1], nu + 1)
+    v = np.linspace(v_range[0], v_range[1], nv + 1)
+    uu, vv = np.meshgrid(u, v)
+    pos, nrm = fn(uu, vv)
+    tex = np.stack(
+        [np.broadcast_to(np.linspace(0, 1, nu + 1), uu.shape),
+         np.broadcast_to(np.linspace(0, 1, nv + 1)[:, None], uu.shape)],
+        axis=-1,
+    )
+    return (
+        pos.reshape(-1, 3).astype(np.float32),
+        nrm.reshape(-1, 3).astype(np.float32),
+        tex.reshape(-1, 2).astype(np.float32),
+        _grid_indices(nu, nv).astype(np.uint32),
+    )
+
+
+def _sphere(nu, nv, radius, theta=(0.05, np.pi - 0.05), phi=(0, 2 * np.pi)):
+    def fn(p, t):
+        n = np.stack(
+            [np.sin(t) * np.cos(p), np.cos(t), np.sin(t) * np.sin(p)], -1
+        )
+        return n * radius, n
+
+    return _param_surface(fn, nu, nv, phi, theta)
+
+
+def _torus(nu, nv, major, minor):
+    def fn(p, t):
+        ring = np.stack([np.cos(p), np.zeros_like(p), np.sin(p)], -1)
+        n = ring * np.cos(t)[..., None] + np.stack(
+            [np.zeros_like(t), np.sin(t), np.zeros_like(t)], -1
+        )
+        return ring * major + n * minor, n
+
+    return _param_surface(fn, nu, nv, (0, 2 * np.pi), (0, 2 * np.pi))
+
+
+def _cylinder(nu, nv, radius, height):
+    def fn(p, h):
+        n = np.stack([np.cos(p), np.zeros_like(p), np.sin(p)], -1)
+        return n * radius + np.stack(
+            [np.zeros_like(h), h, np.zeros_like(h)], -1
+        ), n
+
+    return _param_surface(fn, nu, nv, (0, 2 * np.pi), (0, height))
+
+
+def _disk(nu, nv, radius, y, up):
+    def fn(p, r):
+        pos = np.stack([r * np.cos(p), np.full_like(r, y), r * np.sin(p)], -1)
+        n = np.broadcast_to(np.array([0.0, 1.0 if up else -1.0, 0.0]),
+                            pos.shape)
+        return pos, n
+
+    pos, nrm, uv, idx = _param_surface(fn, nu, nv, (0, 2 * np.pi),
+                                       (0.02 * radius, radius))
+    if not up:
+        idx = idx[:, ::-1]
+    return pos, nrm, uv, np.ascontiguousarray(idx)
+
+
+def _merge(*parts):
+    pos, nrm, uv, idx = [], [], [], []
+    base = 0
+    for p, n, t, i in parts:
+        pos.append(p)
+        nrm.append(n)
+        uv.append(t)
+        idx.append(i + base)
+        base += len(p)
+    return (np.concatenate(pos), np.concatenate(nrm), np.concatenate(uv),
+            np.concatenate(idx).astype(np.uint32))
+
+
+def seeded_meshes(size: str = "full"):
+    """The seeded scene's meshes: list of (name, material, (pos, nrm, uv,
+    idx), node translation). Deterministic; no randomness in geometry."""
+    s = SCENE_SIZES[size][0]
+
+    def n(x):
+        return max(int(round(x * s)), 3)
+
+    pedestal = _merge(
+        _cylinder(n(256), n(40), 0.22, 0.12),
+        _disk(n(256), n(8), 0.22, 0.12, True),
+        _disk(n(256), n(8), 0.22, 0.0, False),
+    )
+    return [
+        ("pedestal", 0, pedestal, (0.0, 0.0, 0.0)),
+        ("shell", 1, _sphere(n(160), n(120), 0.16), (0.0, 0.34, 0.0)),
+        ("hoses", 2, _torus(n(192), n(48), 0.17, 0.025), (0.0, 0.2, 0.0)),
+        ("straps", 3, _cylinder(n(200), n(20), 0.18, 0.08), (0.0, 0.24, 0.0)),
+        ("lenses", 4, _merge(
+            *[(p + np.array([dx, 0.0, 0.0], np.float32), nn, t, i)
+              for dx in (-0.06, 0.06)
+              for p, nn, t, i in [_sphere(n(48), n(32), 0.035)]]
+        ), (0.0, 0.36, 0.15)),
+        ("visor", 5, _sphere(n(96), n(48), 0.175, theta=(0.9, 1.9),
+                             phi=(0.3 * np.pi, 0.7 * np.pi)),
+         (0.0, 0.34, 0.0)),
+    ]
+
+
+# (name, base rgb, roughness, metallic, alpha mode, base alpha)
+_MATERIALS = [
+    ("wood", (0.45, 0.28, 0.15), 0.75, 0.0, "OPAQUE", 1.0),
+    ("metal", (0.55, 0.58, 0.52), 0.35, 1.0, "OPAQUE", 1.0),
+    ("rubber", (0.08, 0.08, 0.09), 0.9, 0.0, "OPAQUE", 1.0),
+    ("leather_mask", (0.35, 0.22, 0.12), 0.6, 0.0, "MASK", 1.0),
+    ("lens", (0.02, 0.02, 0.03), 0.1, 0.0, "OPAQUE", 1.0),
+    ("glass_blend", (0.6, 0.75, 0.8), 0.05, 0.0, "BLEND", 0.4),
+]
+
+
+def _smooth_noise(rng, edge: int, cells: int) -> np.ndarray:
+    """(edge, edge) value noise in [0, 1): bilinear upsampled random grid."""
+    grid = rng.random((cells + 1, cells + 1), dtype=np.float32)
+    x = np.linspace(0, cells, edge, endpoint=False, dtype=np.float32)
+    i = x.astype(np.int32)
+    f = x - i
+    rows = grid[i] * (1 - f)[:, None] + grid[i + 1] * f[:, None]
+    return rows[:, i] * (1 - f)[None, :] + rows[:, i + 1] * f[None, :]
+
+
+def _material_textures(rng, mat, edge: int):
+    """(base colour RGBA, normal RGB, metallic-roughness RGB) uint8."""
+    _name, rgb, rough, metal, mode, alpha = mat
+    noise = _smooth_noise(rng, edge, 16)
+    fine = _smooth_noise(rng, edge, 64)
+    shade = 0.75 + 0.5 * (0.6 * noise + 0.4 * fine - 0.5)
+    base = np.empty((edge, edge, 4), np.float32)
+    base[..., :3] = np.clip(np.asarray(rgb, np.float32) * shade[..., None],
+                            0, 1)
+    base[..., 3] = alpha
+    if mode == "MASK":
+        # punched holes: alpha 0 inside a regular grid of disks
+        y, x = np.mgrid[0:edge, 0:edge].astype(np.float32) / edge
+        d = np.hypot((x * 8) % 1 - 0.5, (y * 8) % 1 - 0.5)
+        base[..., 3] = np.where(d < 0.25, 0.0, 1.0)
+    elif mode == "BLEND":
+        base[..., 3] = np.clip(alpha + 0.2 * (noise - 0.5), 0.05, 1.0)
+    height = 0.7 * noise + 0.3 * fine
+    gy, gx = np.gradient(height * edge / 64.0)
+    nrm = np.stack([-gx, -gy, np.ones_like(gx)], -1)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    mr = np.zeros((edge, edge, 3), np.float32)
+    mr[..., 1] = np.clip(rough + 0.2 * (fine - 0.5), 0.02, 1.0)
+    mr[..., 2] = metal
+    to8 = lambda a: (np.clip(a, 0, 1) * 255 + 0.5).astype(np.uint8)  # noqa: E731
+    return to8(base), to8(nrm * 0.5 + 0.5), to8(mr)
+
+
+def _look_at_quat(eye, target):
+    """Quaternion (xyzw) rotating a glTF camera (looking down -Z, +Y up)
+    to look from eye at target."""
+    f = np.asarray(target, np.float64) - np.asarray(eye, np.float64)
+    f /= np.linalg.norm(f)
+    r = np.cross(f, [0.0, 1.0, 0.0])
+    r /= np.linalg.norm(r)
+    u = np.cross(r, f)
+    m = np.stack([r, u, -f], axis=1)  # columns: camera x, y, z in world
+    w = np.sqrt(max(1.0 + m[0, 0] + m[1, 1] + m[2, 2], 1e-12)) / 2
+    return [
+        float((m[2, 1] - m[1, 2]) / (4 * w)),
+        float((m[0, 2] - m[2, 0]) / (4 * w)),
+        float((m[1, 0] - m[0, 1]) / (4 * w)),
+        float(w),
+    ]
+
+
+def write_seeded_scene(out_dir: str, size: str = "full", seed: int = 0) -> str:
+    """Write the seeded glTF 2.0 scene (JSON + .bin + PNG textures) into
+    out_dir and return the .gltf path. Same (size, seed) -> same bytes.
+
+    Six meshes on six nodes (pedestal, shell, hoses, straps, lenses,
+    visor), six PBR materials each with base-colour, normal and
+    metallic-roughness textures (one alpha-mask, one alpha-blend), a
+    directional and two point lights, a camera, and one node animation
+    (the visor swings open)."""
+    import json
+
+    from .io.image import encode_png
+
+    rng = np.random.default_rng(seed)
+    edge = SCENE_SIZES[size][1]
+    os.makedirs(out_dir, exist_ok=True)
+    blob = bytearray()
+    views, accessors = [], []
+
+    def add(arr: np.ndarray, comp: int, kind: str, target=None, bounds=False):
+        arr = np.ascontiguousarray(arr)
+        while len(blob) % 4:
+            blob.append(0)
+        view = {"buffer": 0, "byteOffset": len(blob),
+                "byteLength": arr.nbytes}
+        if target is not None:
+            view["target"] = target
+        blob.extend(arr.tobytes())
+        views.append(view)
+        acc = {"bufferView": len(views) - 1, "componentType": comp,
+               "count": int(arr.shape[0]), "type": kind}
+        if bounds:
+            acc["min"] = [float(x) for x in np.atleast_1d(arr.min(axis=0))]
+            acc["max"] = [float(x) for x in np.atleast_1d(arr.max(axis=0))]
+        accessors.append(acc)
+        return len(accessors) - 1
+
+    meshes, nodes = [], []
+    for name, mat, (pos, nrm, uv, idx), trans in seeded_meshes(size):
+        prim = {
+            "attributes": {
+                "POSITION": add(pos, 5126, "VEC3", 34962, bounds=True),
+                "NORMAL": add(nrm, 5126, "VEC3", 34962),
+                "TEXCOORD_0": add(uv, 5126, "VEC2", 34962),
+            },
+            "indices": add(idx.reshape(-1), 5125, "SCALAR", 34963),
+            "material": mat,
+        }
+        meshes.append({"name": name, "primitives": [prim]})
+        nodes.append({"name": name, "mesh": len(meshes) - 1,
+                      "translation": list(trans)})
+
+    images, textures, materials = [], [], []
+    for mi, mat in enumerate(_MATERIALS):
+        maps = _material_textures(rng, mat, edge)
+        for kind, img in zip(("basecolor", "normal", "mr"), maps):
+            uri = f"{mat[0]}_{kind}.png"
+            with open(os.path.join(out_dir, uri), "wb") as f:
+                f.write(encode_png(img, level=1))
+            images.append({"uri": uri})
+            textures.append({"source": len(images) - 1, "sampler": 0})
+        t0 = 3 * mi
+        m = {
+            "name": mat[0],
+            "pbrMetallicRoughness": {
+                "baseColorFactor": [1.0, 1.0, 1.0, 1.0],
+                "baseColorTexture": {"index": t0},
+                "metallicFactor": 1.0,
+                "roughnessFactor": 1.0,
+                "metallicRoughnessTexture": {"index": t0 + 2},
+            },
+            "normalTexture": {"index": t0 + 1},
+        }
+        if mat[4] != "OPAQUE":
+            m["alphaMode"] = mat[4]
+        if mat[4] == "MASK":
+            m["alphaCutoff"] = 0.5
+        materials.append(m)
+
+    # lights and camera
+    eye, target = (0.62, 0.48, 0.72), (0.0, 0.28, 0.0)
+    nodes += [
+        {"name": "sun", "rotation": [-0.3535534, 0.3535534, 0.1464466,
+                                     0.8535534],
+         "extensions": {"KHR_lights_punctual": {"light": 0}}},
+        {"name": "lamp_a", "translation": [0.4, 0.6, 0.4],
+         "extensions": {"KHR_lights_punctual": {"light": 1}}},
+        {"name": "lamp_b", "translation": [-0.5, 0.4, 0.2],
+         "extensions": {"KHR_lights_punctual": {"light": 2}}},
+        {"name": "camera", "camera": 0, "translation": list(eye),
+         "rotation": _look_at_quat(eye, target)},
+    ]
+    # the visor swings 0 -> 20 degrees about x over two seconds and back
+    times = np.array([0.0, 1.0, 2.0], np.float32)
+    ang = np.radians([0.0, 20.0, 0.0]) / 2
+    quats = np.stack(
+        [np.sin(ang), np.zeros(3), np.zeros(3), np.cos(ang)], -1
+    ).astype(np.float32)
+    anim = {
+        "name": "visor_swing",
+        "samplers": [{"input": add(times, 5126, "SCALAR", bounds=True),
+                      "output": add(quats, 5126, "VEC4"),
+                      "interpolation": "LINEAR"}],
+        "channels": [{"sampler": 0, "target": {"node": 5,
+                                                "path": "rotation"}}],
+    }
+
+    bin_name = "scene.bin"
+    with open(os.path.join(out_dir, bin_name), "wb") as f:
+        f.write(bytes(blob))
+    doc = {
+        "asset": {"version": "2.0", "generator": SCENE_GENERATOR},
+        "extensionsUsed": ["KHR_lights_punctual"],
+        "extensions": {"KHR_lights_punctual": {"lights": [
+            {"type": "directional", "color": [1.0, 0.96, 0.9],
+             "intensity": 3.0},
+            {"type": "point", "color": [1.0, 0.85, 0.7], "intensity": 2.0,
+             "range": 3.0},
+            {"type": "point", "color": [0.6, 0.75, 1.0], "intensity": 1.5,
+             "range": 3.0},
+        ]}},
+        "scene": 0,
+        "scenes": [{"nodes": list(range(len(nodes)))}],
+        "nodes": nodes,
+        "meshes": meshes,
+        "materials": materials,
+        "textures": textures,
+        "images": images,
+        "samplers": [{"magFilter": 9729, "minFilter": 9987,
+                      "wrapS": 10497, "wrapT": 10497}],
+        "cameras": [{"type": "perspective", "perspective": {
+            "yfov": float(np.radians(45.0)), "znear": 0.01, "zfar": 50.0}}],
+        "animations": [anim],
+        "buffers": [{"uri": bin_name, "byteLength": len(blob)}],
+        "bufferViews": views,
+        "accessors": accessors,
+    }
+    path = os.path.join(out_dir, "scene.gltf")
+    with open(path, "w") as f:
+        json.dump(doc, f, indent=1, sort_keys=True)
+    return path
+
+
+def seeded_scene_path(size: str = "full", seed: int = 0,
+                      root: str | None = None) -> str:
+    """Path of the seeded scene under generated/ (gitignored), written on
+    first use and whenever the generator version changed."""
+    import json
+    import shutil
+    import tempfile
+
+    root = GENERATED_DIR if root is None else root
+    out_dir = os.path.join(root, f"seeded_{size}_{seed}")
+    path = os.path.join(out_dir, "scene.gltf")
+    try:
+        with open(path) as f:
+            if json.load(f)["asset"]["generator"] == SCENE_GENERATOR:
+                return path
+    except (OSError, ValueError, KeyError):
+        pass
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix=f".seeded_{size}_{seed}_", dir=root)
+    write_seeded_scene(tmp, size, seed)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    try:
+        os.rename(tmp, out_dir)
+    except OSError:  # another process published it first
+        shutil.rmtree(tmp, ignore_errors=True)
+    return path
+
+
+# ---------------------------------------------------------------------------
+# Tracer test fixtures: random cluster soup and its brute-force answer
+# ---------------------------------------------------------------------------
+
+
+def random_cluster_soup(n_clusters=4, seed=0):
+    """Random triangle soup padded into 128-slot cluster slabs: (tris
+    {"v0", "e1", "e2"}, cluster AABB min, max) as device arrays."""
+    import jax.numpy as jnp
+
+    from .ops.trace import CLUSTER_PAD
+
+    rng = np.random.default_rng(seed)
+    S = n_clusters * CLUSTER_PAD
+    v0 = np.zeros((S, 3), np.float32)
+    e1 = np.zeros((S, 3), np.float32)
+    e2 = np.zeros((S, 3), np.float32)
+    wc_min = np.zeros((n_clusters, 3), np.float32)
+    wc_max = np.zeros((n_clusters, 3), np.float32)
+    for c in range(n_clusters):
+        center = rng.uniform(-4, 4, 3)
+        n_real = rng.integers(8, CLUSTER_PAD - 3)
+        base = c * CLUSTER_PAD
+        a = center + rng.normal(0, 1.0, (n_real, 3))
+        b = a + rng.normal(0, 0.5, (n_real, 3))
+        d = a + rng.normal(0, 0.5, (n_real, 3))
+        v0[base : base + n_real] = a
+        e1[base : base + n_real] = b - a
+        e2[base : base + n_real] = d - a
+        pts = np.concatenate([a, b, d])
+        wc_min[c] = pts.min(axis=0)
+        wc_max[c] = pts.max(axis=0)
+    return (
+        {"v0": jnp.asarray(v0), "e1": jnp.asarray(e1), "e2": jnp.asarray(e2)},
+        jnp.asarray(wc_min),
+        jnp.asarray(wc_max),
+    )
+
+
+def brute_force_closest(tris, o, d, t_min, t_max):
+    """Every ray against every triangle slot with Moller-Trumbore:
+    (closest slot index or -1, its t or inf)."""
+    from .ops.intersect import moller_trumbore
+
+    hit, t, u, v = moller_trumbore(
+        np.asarray(o)[:, None, :],
+        np.asarray(d)[:, None, :],
+        np.asarray(tris["v0"])[None],
+        np.asarray(tris["e1"])[None],
+        np.asarray(tris["e2"])[None],
+        t_min,
+        t_max,
+    )
+    t = np.where(np.asarray(hit), np.asarray(t), np.inf)
+    best = np.argmin(t, axis=1)
+    bt = t[np.arange(len(best)), best]
+    return np.where(np.isfinite(bt), best, -1), bt

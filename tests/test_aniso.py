@@ -112,92 +112,3 @@ def test_gbuffer_aniso_path_runs_and_matches_at_normal_incidence():
     # the answer — this pins the aniso plumbing (uv jacobian, lod) as
     # non-corrupting; real-texture quality is the texture-level test
     np.testing.assert_allclose(a4, a1, atol=1e-5)
-
-
-def test_fused_aniso_matches_gather_path():
-    """evaluate_surface_from_attrs' aniso footprint (one (R,12) arena
-    row gather) must match evaluate_surface's vertex-gather footprint —
-    same Jacobian, same taps."""
-    import jax
-    import jax.numpy as jnp
-    from unittest import mock
-    import jax.experimental.pallas as pl
-    from contextlib import contextmanager
-
-    from prosper_tpu.accel.bvh import build_bvh, pack_nodes
-    from prosper_tpu.ops import trace, trace_bvh
-    from prosper_tpu.ops.texture import pack_material_tables
-    from prosper_tpu.ops.trace_pallas_full import pack_tris_full
-    from prosper_tpu.render.surface import (
-        evaluate_surface,
-        evaluate_surface_from_attrs,
-        pixel_cone_alpha,
-    )
-    from prosper_tpu.scene.camera import Camera, CameraParameters, CameraTransform
-    from prosper_tpu.testing import make_test_scene
-    from prosper_tpu.ops.rays import pinhole_rays
-
-    @contextmanager
-    def interpret_mode():
-        orig = pl.pallas_call
-
-        def interp(*a, **k):
-            k.setdefault("interpret", True)
-            return orig(*a, **k)
-
-        with mock.patch.object(pl, "pallas_call", interp):
-            yield
-
-    static, frame, arena, cam_fn = make_test_scene(n_boxes=4)
-    dev = lambda t: {  # noqa: E731
-        k: (
-            {kk: jnp.asarray(vv) for kk, vv in v.items()}
-            if isinstance(v, dict)
-            else jnp.asarray(v)
-        )
-        for k, v in t.items()
-    }
-    static, frame, arena = dev(static), dev(frame), dev(arena)
-    arena["mat_f32"], arena["mat_i32"] = pack_material_tables(
-        static["materials"], arena
-    )
-    W = H = 32
-    cam = {k: jnp.asarray(v) for k, v in cam_fn(W, H).items()}
-    uv = jnp.stack(
-        jnp.meshgrid(
-            (jnp.arange(W) + 0.5) / W, (jnp.arange(H) + 0.5) / H
-        ),
-        -1,
-    ).reshape(-1, 2)
-    o, d = pinhole_rays(cam, uv)
-
-    st = {k: v for k, v in static.items() if k != "materials"}
-    fr = {k: v for k, v in frame.items() if k != "lights"}
-    packed = pack_tris_full(st, fr, dtype=jnp.float32)
-    bounds, meta = (jnp.asarray(a) for a in pack_nodes(
-        build_bvh(np.asarray(frame["wc_aabb_min_w"]),
-                  np.asarray(frame["wc_aabb_max_w"]), max_leaf_size=1)
-    ))
-    with interpret_mode():
-        hit_full = trace_bvh.trace_closest_bvh_full(
-            packed, bounds, meta, o, d, 1e-4, jnp.inf
-        )
-    # gather path needs (t, tri, u, v): CPU tracer
-    tris = trace.world_triangles(static, frame)
-    hit_plain = trace.trace_closest(
-        tris, frame["wc_aabb_min_w"], frame["wc_aabb_max_w"],
-        o, d, 1e-4, jnp.inf,
-    )
-    cone = {"alpha": pixel_cone_alpha(cam, H), "bias": 0.0, "aniso_taps": 4}
-    s_gather = evaluate_surface(static, frame, arena, o, d, hit_plain,
-                                cone=cone)
-    s_fused = evaluate_surface_from_attrs(
-        arena, o, d, hit_full, cone=cone, tris_packed=packed
-    )
-    v = np.asarray(hit_plain["tri"]) >= 0
-    assert v.sum() > 100
-    for k in ("albedo", "roughness", "metallic"):
-        np.testing.assert_allclose(
-            np.asarray(s_fused[k])[v], np.asarray(s_gather[k])[v],
-            rtol=1e-4, atol=1e-4, err_msg=k,
-        )

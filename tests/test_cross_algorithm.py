@@ -199,10 +199,7 @@ def test_pt_deferred_restir_agree(scene):
         restir_mod.SPATIAL_RADIUS = old_radius
 
     # --- per-light visibility with the PT kernel's shadow convention ---
-    tris = trace.world_triangles(static, frame)
-    _, any_fn = trace.make_tracer(
-        tris, frame["wc_aabb_min_w"], frame["wc_aabb_max_w"]
-    )
+    any_fn = trace.make_tracer(static, frame).any
     pos = np.asarray(gbuf["surface"]["position_ws"])
     unshadowed = valid.copy()
     for li in range(3):

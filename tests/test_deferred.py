@@ -147,12 +147,12 @@ def test_deferred_matches_forward_still_frame():
     """Deferred (clustered) and forward shading agree on a still frame."""
     from prosper_tpu.render.deferred import render_deferred
     from prosper_tpu.render.forward import render_forward
-    from prosper_tpu.ops.tonemap import load_tony_mc_mapface
+    from prosper_tpu.ops.tonemap import generated_lut
 
     static, frame, arena, cam_fn = make_test_scene()
     width = height = 64
     cam = {k: jnp.asarray(v) for k, v in cam_fn(width, height).items()}
-    lut = jnp.asarray(load_tony_mc_mapface())
+    lut = jnp.asarray(generated_lut())
     img_d, _ = render_deferred(
         _dev(static), _dev(frame), _dev(arena), cam, lut, width, height
     )
@@ -168,12 +168,12 @@ def test_deferred_state_threads_hiz_across_frames():
     (ForwardRenderer.hpp:142): frame 2's phase-1 cull tests against
     frame 1's HiZ and the image stays identical (static camera)."""
     from prosper_tpu.render.deferred import deferred_entry
-    from prosper_tpu.ops.tonemap import load_tony_mc_mapface
+    from prosper_tpu.ops.tonemap import generated_lut
 
     static, frame, arena, cam_fn = make_test_scene()
     width = height = 64
     cam = {k: jnp.asarray(v) for k, v in cam_fn(width, height).items()}
-    lut = jnp.asarray(load_tony_mc_mapface())
+    lut = jnp.asarray(generated_lut())
     kw = dict(
         static=_dev(static), frame=_dev(frame), arena=_dev(arena), cam=cam,
         lut=lut, width=width, height=height, use_culling=True,

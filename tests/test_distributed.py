@@ -48,9 +48,8 @@ def test_sharded_matches_single_device():
         max_bounces=2,
     )
     assert int(total_rays) > 0
-    # sharded path traces pixels in row-major band order; single-device
-    # traces in block order but returns row-major: same pixels, same RNG
-    # streams (pcg state is (px, py, frame)) -> identical radiance
+    # both trace the same pixels with the same RNG streams (pcg state is
+    # (px, py, frame)), in bands or whole -> identical radiance
     np.testing.assert_allclose(
         np.asarray(color), np.asarray(single), rtol=1e-5, atol=1e-6
     )
@@ -163,7 +162,7 @@ def test_deferred_sharded_matches_single_device():
 
 
 def test_deferred_sharded_unaligned_height():
-    """1080p-class band alignment (VERDICT r3 weak #5): heights that do
+    """1080p-class band alignment: heights that do
     NOT split into 32-aligned bands (1080/8 = 135 rows) must shard by
     padding bands to the froxel tile and cropping — band results equal
     the single-device path."""
@@ -257,3 +256,20 @@ def test_restir_sharded_unaligned_height():
     assert b.shape == a.shape
     assert np.isfinite(b).all()
     assert np.allclose(a, b, atol=1e-5), float(np.abs(a - b).max())
+
+
+def test_restir_sharded_textured_scene_matches_single_device():
+    """On a textured scene each band must pick the single-device texture
+    mips: the ray-cone footprint is set by the full frame's height, not
+    the band's."""
+    from prosper_tpu import parity
+    from prosper_tpu.render.distributed import restir_render_sharded
+    from prosper_tpu.render.restir import render_restir
+
+    W, H = 64, 128
+    sc = parity.load_scene("small", W, H, max_texture_dim=64)
+    args = (sc["static"], sc["frame"], sc["arena"], sc["cam"])
+    _img, single = render_restir(*args, sc["lut"], W, H, 0)
+    sharded = restir_render_sharded(make_mesh(4), *args, W, H, 0)
+    a, b = np.asarray(single), np.asarray(sharded)
+    assert np.allclose(a, b, atol=1e-4), float(np.abs(a - b).max())

@@ -1,121 +1,50 @@
 """Golden-image regression tests (BASELINE config 1 harness shape).
 
-The Vulkan-reference goldens need the driver's lavapipe renders; until
-those exist the forward 256^2 FlightHelmet frame is pinned against a
-SELF-golden committed to the repo — any change to loader, traversal,
-shading, or tonemap that shifts the image past tolerance fails here.
+Each mode's GOLDEN_RES^2 frame of the small seeded scene
+(prosper_tpu/parity.golden_frame, generated display LUT) is pinned
+against a SELF-golden rendered on the CPU and committed to the repo —
+any change to loader, traversal, shading, or tonemap that shifts the
+image past tolerance fails here. The same goldens are the CPU side of
+the GPU frame parity check (chip_smoke.py).
 Regenerate with: python -m tests.test_goldens regen
 """
 
 import os
 
 import numpy as np
-import jax.numpy as jnp
+
+from prosper_tpu.parity import GOLDEN_MODES, GOLDEN_RES, golden_frame
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
-SCENE = "/root/reference/res/glTF/FlightHelmet/glTF/FlightHelmet.gltf"
-RES = 128  # small enough to commit, big enough to catch shifts
 
 
-def _scene():
-    from prosper_tpu.ops.texture import pack_material_tables
-    from prosper_tpu.ops.tonemap import load_tony_mc_mapface
-    from prosper_tpu.render.forward import render_forward
-    from prosper_tpu.scene.textures import build_texture_arena
-    from prosper_tpu.scene.world import World
-
-    world = World(SCENE, use_cache=False)
-    arena = build_texture_arena(world.doc, max_dim=512)
-    static = {
-        k: (
-            {kk: jnp.asarray(vv) for kk, vv in v.items()}
-            if isinstance(v, dict)
-            else jnp.asarray(v)
-        )
-        for k, v in world.static_scene_arrays().items()
-    }
-    arena_dev = {k: jnp.asarray(v) for k, v in arena.uniforms().items()}
-    arena_dev["mat_f32"], arena_dev["mat_i32"] = pack_material_tables(
-        world.static_scene_arrays()["materials"], arena_dev
-    )
-    frame = world.frame_arrays(0.0)
-    fd = {
-        k: (
-            {kk: jnp.asarray(vv) for kk, vv in v.items()}
-            if isinstance(v, dict)
-            else jnp.asarray(v)
-        )
-        for k, v in frame.items()
-        if k not in ("scene_camera", "bvh_depth")
-    }
-    cam = {
-        k: jnp.asarray(v)
-        for k, v in world.make_camera((RES, RES)).uniforms().items()
-    }
-    lut = jnp.asarray(load_tony_mc_mapface())
-    return static, fd, arena_dev, cam, lut
-
-
-def _render(mode="forward"):
-    static, fd, arena_dev, cam, lut = _scene()
-    if mode == "forward":
-        from prosper_tpu.render.forward import render_forward
-
-        img = render_forward(static, fd, arena_dev, cam, lut, RES, RES)
-    elif mode == "pt":
-        from prosper_tpu.render.pt import pt_entry
-
-        img, _ = pt_entry(
-            static=static, frame=fd, arena=arena_dev, cam=cam, lut=lut,
-            width=RES, height=RES, max_bounces=2, frame_index=0,
-        )
-    elif mode == "deferred":
-        from prosper_tpu.render.deferred import deferred_entry
-
-        img, _ = deferred_entry(
-            static=static, frame=fd, arena=arena_dev, cam=cam, lut=lut,
-            width=RES, height=RES, use_bloom=True, use_dof=True,
-        )
-    elif mode == "restir":
-        from prosper_tpu.render.restir import restir_entry
-
-        img, _ = restir_entry(
-            static=static, frame=fd, arena=arena_dev, cam=cam, lut=lut,
-            width=RES, height=RES, frame_index=0,
-        )
-    return np.asarray(img)
+def golden_path(mode: str) -> str:
+    return os.path.join(GOLDEN_DIR, f"{mode}_seeded_{GOLDEN_RES}.npy")
 
 
 def _check_golden(mode):
-    golden_path = os.path.join(GOLDEN_DIR, f"{mode}_helmet_{RES}.npy")
-    img = _render(mode)
-    if not os.path.exists(golden_path):
-        os.makedirs(GOLDEN_DIR, exist_ok=True)
-        np.save(golden_path, img)
-        raise AssertionError(
-            f"golden created at {golden_path}; rerun to validate"
-        )
-    golden = np.load(golden_path)
+    img = golden_frame(mode)
+    golden = np.load(golden_path(mode)).astype(np.float32)
     rmse = float(np.sqrt(np.mean((img - golden) ** 2)))
     assert rmse < 1e-3, f"{mode} RMSE vs golden {rmse}"
 
 
-def test_forward_flighthelmet_golden():
+def test_forward_seeded_golden():
     _check_golden("forward")
 
 
-def test_pt_flighthelmet_golden():
+def test_pt_seeded_golden():
     """1-spp 2-bounce PT sample with a fixed seed (BASELINE config 2
     harness shape at self-golden scale)."""
     _check_golden("pt")
 
 
-def test_deferred_post_flighthelmet_golden():
+def test_deferred_post_seeded_golden():
     """Deferred + bloom + DoF chain (configs 3/5 harness shape)."""
     _check_golden("deferred")
 
 
-def test_restir_flighthelmet_golden():
+def test_restir_seeded_golden():
     """ReSTIR DI frame, frame_index 0 (config 4 harness shape)."""
     _check_golden("restir")
 
@@ -128,17 +57,16 @@ if __name__ == "__main__":
     # rounding at the ~1e-3 level)
     import jax
 
+    from prosper_tpu.scene.caches import compile_cache_dir
+
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_num_cpu_devices", 8)
     jax.config.update("jax_enable_x64", False)
-    jax.config.update("jax_compilation_cache_dir", "/tmp/prosper_tpu_jax_cache")
+    jax.config.update("jax_compilation_cache_dir", compile_cache_dir())
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
 
     if len(sys.argv) > 1 and sys.argv[1] == "regen":
         os.makedirs(GOLDEN_DIR, exist_ok=True)
-        for mode in ("forward", "pt", "deferred", "restir"):
-            np.save(
-                os.path.join(GOLDEN_DIR, f"{mode}_helmet_{RES}.npy"),
-                _render(mode),
-            )
+        for mode in GOLDEN_MODES:
+            np.save(golden_path(mode), golden_frame(mode).astype(np.float16))
             print(f"{mode} golden regenerated")

@@ -80,8 +80,8 @@ def test_eval_ibl_shapes_and_energy():
 def test_prefilter_all_mips_finite():
     """Every prefiltered mip must be finite on every face.
 
-    Regression: compiling all mips into one jit program miscompiled on
-    the TPU stack (NaN on the -x/-y/+-z faces of mips 3-6);
+    Regression: compiling all mips into one jit program once miscompiled
+    (NaN on the -x/-y/+-z faces of mips 3-6);
     prefilter_radiance now dispatches one jit call per mip.
     """
     import numpy as np

@@ -3,25 +3,25 @@
 World(instance_grid=N) replicates the whole scene graph on an NxN
 ground grid through the normal node pipeline, so draw instances, the
 world-cluster arena and the per-frame TLAS scale together — the stand-in
-for Sponza-class scenes whose asset is absent from the mount
-(/root/reference/src/scene/DeferredLoadingContext.cpp:22 sizes its
-geometry heaps at 64 MB for this class of scene).
+for Sponza-class scenes (the reference's DeferredLoadingContext.cpp:22
+sizes its geometry heaps at 64 MB for this class of scene).
 """
 
 import numpy as np
 import jax.numpy as jnp
 
-from prosper_tpu.testing import make_test_scene  # noqa: F401 (conftest env)
+from prosper_tpu.testing import seeded_scene_path
 
 
-SCENE = "/root/reference/res/glTF/FlightHelmet/glTF/FlightHelmet.gltf"
+def _scene():
+    return seeded_scene_path("small")
 
 
 def test_grid_scales_instances_clusters_and_tlas():
     from prosper_tpu.scene.world import World
 
-    base = World(SCENE)
-    grid = World(SCENE, instance_grid=2)
+    base = World(_scene())
+    grid = World(_scene(), instance_grid=2)
     assert grid.n_world_clusters == 4 * base.n_world_clusters
     assert len(grid.draw_instances.mesh) == 4 * len(base.draw_instances.mesh)
 
@@ -39,8 +39,8 @@ def test_grid_scales_instances_clusters_and_tlas():
     span_grid = f["wc_aabb_max_w"].max(0) - f["wc_aabb_min_w"].min(0)
     assert span_grid[0] > 1.5 * span_base[0]
     assert span_grid[2] > 1.5 * span_base[2]
-    # TLAS still fits the kernels' descent stack
-    from prosper_tpu.ops.trace_bvh import STACK_CAP
+    # TLAS still fits the CUDA tracer's descent stack
+    from prosper_tpu.ops.trace_cuda import STACK_CAP
 
     assert f["bvh_depth"] + 2 <= STACK_CAP
 
@@ -48,8 +48,6 @@ def test_grid_scales_instances_clusters_and_tlas():
 def test_grid_renders_replicas():
     """A wide-angle render of a 2x2 grid shows MORE geometry coverage
     than the base scene from the same elevated camera."""
-    import jax
-
     from prosper_tpu.ops import trace
     from prosper_tpu.ops.rays import pinhole_rays
     from prosper_tpu.scene.world import World
@@ -94,5 +92,5 @@ def test_grid_renders_replicas():
         )
         return int(jnp.sum(hit["tri"] >= 0))
 
-    cov_grid = coverage(World(SCENE, instance_grid=2))
+    cov_grid = coverage(World(_scene(), instance_grid=2))
     assert cov_grid > 0

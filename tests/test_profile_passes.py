@@ -52,3 +52,43 @@ def test_scope_map_for_calls_compiles_captured():
     x = jnp.ones((8, 8))
     m = prof.scope_map_for_calls([(jg, (x,), {})])
     assert "taa" in set(m.values())
+
+
+def test_device_events_read_gpu_stream_lines():
+    """GPU traces: kernel events on a device plane's stream lines, keyed
+    by their hlo_op stat; derived lines and host planes are skipped."""
+    from types import SimpleNamespace as NS
+
+    def ev(name, s, e, **stats):
+        return NS(name=name, start_ns=s, end_ns=e, stats=list(stats.items()))
+
+    data = NS(planes=[
+        NS(name="/device:GPU:0", lines=[
+            NS(name="Stream #13(Compute)", events=[
+                ev("loop_fusion_kernel", 0, 10, hlo_op="fusion.3"),
+                ev("memcpy", 10, 12),
+            ]),
+            NS(name="XLA Ops", events=[ev("fusion.3", 0, 10,
+                                          hlo_op="fusion.3")]),
+        ]),
+        NS(name="/host:CPU", lines=[
+            NS(name="python", events=[ev("f", 0, 5, hlo_op="x")]),
+        ]),
+    ])
+    assert list(prof.device_events(data)) == [(0, 10, "fusion.3")]
+
+
+def test_expose_device_ops_turns_off_command_buffers(monkeypatch):
+    """Profiling asks XLA for one trace event per kernel: the command
+    buffer flag is appended once to whatever XLA_FLAGS already holds."""
+    import os
+
+    from prosper_tpu.utils.profiler import expose_device_ops
+
+    monkeypatch.setenv("XLA_FLAGS", "--xla_dump_to=/dev/null")
+    expose_device_ops()
+    expose_device_ops()
+    flags = os.environ["XLA_FLAGS"].split()
+    assert flags == [
+        "--xla_dump_to=/dev/null", "--xla_gpu_enable_command_buffer="
+    ]

@@ -1,18 +1,22 @@
 """Asset streaming + caches: deferred loading must converge to the same
 arenas as synchronous loading; caches must round-trip."""
 
+import os
 import time
 
 import numpy as np
 
 from prosper_tpu.scene.world import World
+from prosper_tpu.testing import seeded_scene_path
 
-SCENE = "/root/reference/res/glTF/FlightHelmet/glTF/FlightHelmet.gltf"
+
+def _scene():
+    return seeded_scene_path("small")
 
 
 def test_streaming_converges_to_full_load():
-    full = World(SCENE, use_cache=False)
-    stream = World(SCENE, use_cache=False, streaming=True)
+    full = World(_scene(), use_cache=False)
+    stream = World(_scene(), use_cache=False, streaming=True)
 
     # before streaming starts: nothing visible (meshletCount==0 gate)
     assert (stream.wc_tri_count == 0).all()
@@ -43,11 +47,11 @@ def test_mesh_cache_roundtrip(tmp_path):
     # copy a scene stub so the cache lands in tmp
     scene_dir = tmp_path / "scene"
     shutil.copytree(
-        "/root/reference/res/glTF/FlightHelmet/glTF",
+        os.path.dirname(_scene()),
         scene_dir,
-        ignore=shutil.ignore_patterns("*.png"),
+        ignore=shutil.ignore_patterns("*.png", "prosper_cache"),
     )
-    spath = str(scene_dir / "FlightHelmet.gltf")
+    spath = str(scene_dir / "scene.gltf")
 
     w1 = World(spath, use_cache=True)
     t0 = time.time()
@@ -68,8 +72,11 @@ def test_texture_cache_roundtrip(tmp_path):
     from prosper_tpu.scene.world import World
 
     scene_dir = tmp_path / "scene"
-    shutil.copytree("/root/reference/res/glTF/FlightHelmet/glTF", scene_dir)
-    spath = str(scene_dir / "FlightHelmet.gltf")
+    shutil.copytree(
+        os.path.dirname(_scene()), scene_dir,
+        ignore=shutil.ignore_patterns("prosper_cache"),
+    )
+    spath = str(scene_dir / "scene.gltf")
     w = World(spath, use_cache=False)
     a1 = build_texture_arena(w.doc, max_dim=256, scene_path=spath)
     a2 = build_texture_arena(w.doc, max_dim=256, scene_path=spath)  # cache hit
@@ -90,7 +97,7 @@ def test_texture_streaming_converges_to_full_arena():
     )
     from prosper_tpu.scene.streaming import LoadedTexture
 
-    doc = load_gltf(SCENE)
+    doc = load_gltf(_scene())
     full = build_texture_arena(doc, max_dim=256)
     streamed, jobs = build_streaming_arena(doc, max_dim=256)
 
@@ -100,8 +107,7 @@ def test_texture_streaming_converges_to_full_arena():
     assert streamed.data.shape == full.data.shape
     assert len(jobs) == len(doc.images)
 
-    # contents start neutral (different from the full arena somewhere,
-    # unless every texture file is missing from the mount)
+    # contents start neutral and converge to the full arena
     data = streamed.data.copy()
     for job in jobs:
         tex = job()
@@ -114,7 +120,7 @@ def test_world_streams_textures_after_meshes():
     from prosper_tpu.scene.streaming import LoadedTexture
     from prosper_tpu.scene.textures import build_streaming_arena
 
-    stream = World(SCENE, use_cache=False, streaming=True)
+    stream = World(_scene(), use_cache=False, streaming=True)
     _, jobs = build_streaming_arena(stream.doc, max_dim=64)
     stream.start_streaming(jobs)
     textures = []

@@ -4,52 +4,8 @@ import numpy as np
 import jax.numpy as jnp
 
 from prosper_tpu.ops import trace
-from prosper_tpu.ops.intersect import moller_trumbore
-
-
-def _random_scene(n_clusters=4, seed=0):
-    """Random triangle soup padded into cluster slabs."""
-    rng = np.random.default_rng(seed)
-    S = n_clusters * trace.CLUSTER_PAD
-    v0 = np.zeros((S, 3), np.float32)
-    e1 = np.zeros((S, 3), np.float32)
-    e2 = np.zeros((S, 3), np.float32)
-    wc_min = np.zeros((n_clusters, 3), np.float32)
-    wc_max = np.zeros((n_clusters, 3), np.float32)
-    for c in range(n_clusters):
-        center = rng.uniform(-4, 4, 3)
-        n_real = rng.integers(8, trace.CLUSTER_PAD - 3)
-        base = c * trace.CLUSTER_PAD
-        a = center + rng.normal(0, 1.0, (n_real, 3))
-        b = a + rng.normal(0, 0.5, (n_real, 3))
-        d = a + rng.normal(0, 0.5, (n_real, 3))
-        v0[base : base + n_real] = a
-        e1[base : base + n_real] = b - a
-        e2[base : base + n_real] = d - a
-        pts = np.concatenate([a, b, d])
-        wc_min[c] = pts.min(axis=0)
-        wc_max[c] = pts.max(axis=0)
-    return (
-        {"v0": jnp.asarray(v0), "e1": jnp.asarray(e1), "e2": jnp.asarray(e2)},
-        jnp.asarray(wc_min),
-        jnp.asarray(wc_max),
-    )
-
-
-def _brute_force(tris, o, d, t_min, t_max):
-    hit, t, u, v = moller_trumbore(
-        np.asarray(o)[:, None, :],
-        np.asarray(d)[:, None, :],
-        np.asarray(tris["v0"])[None],
-        np.asarray(tris["e1"])[None],
-        np.asarray(tris["e2"])[None],
-        t_min,
-        t_max,
-    )
-    t = np.where(np.asarray(hit), np.asarray(t), np.inf)
-    best = np.argmin(t, axis=1)
-    bt = t[np.arange(len(best)), best]
-    return np.where(np.isfinite(bt), best, -1), bt
+from prosper_tpu.testing import brute_force_closest as _brute_force
+from prosper_tpu.testing import random_cluster_soup as _random_scene
 
 
 def test_trace_closest_matches_brute_force():
@@ -112,25 +68,3 @@ def test_coherent_tile_rays():
     sel = want_tri >= 0
     np.testing.assert_array_equal(np.asarray(hit["tri"]) >= 0, sel)
     np.testing.assert_allclose(got_t[sel], want_t[sel], rtol=1e-5, atol=1e-6)
-
-
-def test_permute16_matches_per_pixel_inverse():
-    """Segment-level block<->row-major permutation == the per-pixel
-    inverse permutation it replaced."""
-    import numpy as np
-    import jax.numpy as jnp
-
-    from prosper_tpu.ops.trace import (
-        block_inverse16,
-        block_pixel_order,
-        permute16,
-    )
-
-    W, H = 64, 48
-    _, _, inv = block_pixel_order(W, H)
-    inv16 = jnp.asarray(block_inverse16(W, H))
-    rng = np.random.default_rng(0)
-    a = rng.random((W * H, 5)).astype(np.float32)
-    want = a[inv]
-    got = np.asarray(permute16(jnp.asarray(a), inv16))
-    assert np.array_equal(got, want)
